@@ -1,0 +1,710 @@
+"""Gather-free assembled-operator engine (counterpart of
+``navierstokes_tpu/assembly/fastop.py``).
+
+Assembly runs on the host in NumPy/SciPy f64, exactly as in the JAX
+package; the device formats hold torch tensors:
+
+* ``CirculantBand`` -- under a lexicographic node order the nonzero
+  offsets ``(col - row) mod N`` of a periodic structured operator are few
+  (P2 mass/stiffness 23 on a 2D torus, P1 Laplacian 9); the band is stored
+  dense ``(n_offsets, N)`` and applied by the CUDA kernel of
+  ``cuda_band.circulant_apply`` (plain torch for CPU tensors).
+* ``StencilCoupling`` -- the P2<->P1 gradient/divergence couplings on
+  translation-class torus grids as a class-constant stencil.
+* ``StridedConv`` -- the convection quadrature over translation classes
+  of cells, as static slices of the wrap-padded parity phases.
+
+Not ported yet (each raises ``NotImplementedError`` where a caller reaches
+it): ``AffineBand`` and the RCM ordering (non-periodic and unstructured
+meshes), ``GatherOp`` rim couplings, and 3D.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import scipy.sparse as sp
+import torch
+
+from navierstokes_tpu_torch import config
+from navierstokes_tpu_torch.assembly import cuda_band
+
+
+# ---------------------------------------------------------------------------
+# host-side scalar element matrices and CSR assembly
+# ---------------------------------------------------------------------------
+
+def scalar_element_matrices(space):
+    """Per-cell scalar P2/P1 element matrices (host f64).
+
+    Returns dict with M2 (nc, 6, 6) P2 mass, K2 (nc, 6, 6) P2 stiffness,
+    L1 (nc, 3, 3) P1 stiffness, M1 (nc, 3, 3) P1 mass and
+    G (nc, 6, d, 3) pressure-gradient coupling
+    G[c, i, d, j] = -int N1_j dN2_i/dx_d.
+    """
+    W = np.asarray(space.integration_weights(), dtype=np.float64)
+    N2 = np.asarray(space.N2, dtype=np.float64)
+    N1 = np.asarray(space.N1, dtype=np.float64)
+    Jinv_q = np.asarray(space.Jinv_q, dtype=np.float64)
+    g2 = np.einsum("qia,cqae->cqie", np.asarray(space.G2, np.float64), Jinv_q)
+    g1 = np.einsum("qja,cqae->cqje", np.asarray(space.G1, np.float64), Jinv_q)
+    return {
+        "M2": np.einsum("cq,qi,qj->cij", W, N2, N2),
+        "K2": np.einsum("cq,cqie,cqje->cij", W, g2, g2),
+        "L1": np.einsum("cq,cqje,cqke->cjk", W, g1, g1),
+        "M1": np.einsum("cq,qj,qk->cjk", W, N1, N1),
+        "G": -np.einsum("cq,qj,cqid->cidj", W, N1, g2),
+    }
+
+
+def assemble_csr(vals, rows_nodes, cols_nodes, shape):
+    """Scatter per-cell blocks (nc, a, b) into a CSR matrix."""
+    nc, a, b = vals.shape
+    r = np.repeat(rows_nodes, b, axis=1).ravel()
+    c = np.tile(cols_nodes, (1, a)).ravel()
+    m = sp.coo_matrix((vals.ravel(), (r, c)), shape=shape).tocsr()
+    m.sum_duplicates()
+    return m
+
+
+def node_coordinates(space):
+    """(n_unodes, d) and (n_pnodes, d) canonical node coordinates.
+
+    Periodic slave occurrences map onto their owner; the canonical
+    coordinate is the per-axis minimum over occurrences.
+    """
+    cu = np.asarray(space.cell_unodes)
+    cp = np.asarray(space.cell_pnodes)
+    X = np.asarray(space.cell_ucoords, dtype=np.float64)
+    d = X.shape[-1]
+    uc = np.full((space.n_unodes, d), np.inf)
+    pc = np.full((space.n_pnodes, d), np.inf)
+    for ax in range(d):
+        np.minimum.at(uc[:, ax], cu.ravel(), X[..., ax].ravel())
+        np.minimum.at(pc[:, ax], cp.ravel(),
+                      X[:, :cp.shape[1], ax].ravel())
+    return uc, pc
+
+
+def lex_permutation(coords, tol=1e-9):
+    """Row-major lexicographic node order (last axis fastest)."""
+    keys = np.round(np.asarray(coords, np.float64) / tol).astype(np.int64)
+    perm = np.lexsort(tuple(keys[:, ax] for ax in range(keys.shape[1])))
+    return np.asarray(perm, dtype=np.int64)
+
+
+def _inverse(perm):
+    inv = np.empty_like(perm)
+    inv[perm] = np.arange(len(perm))
+    return inv
+
+
+def _to_numpy(a):
+    """Host copy of a torch tensor or any array-like (JAX arrays too)."""
+    if torch.is_tensor(a):
+        return a.detach().cpu().numpy()
+    return np.asarray(a)
+
+
+def _wrap_pad(a, e):
+    """Pad the last two axes circularly by ``e`` (``jnp.pad(mode="wrap")``)."""
+    if e == 0:
+        return a
+    a = torch.cat([a[..., -e:, :], a, a[..., :e, :]], dim=-2)
+    return torch.cat([a[..., -e:], a, a[..., :e]], dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# device formats
+# ---------------------------------------------------------------------------
+
+class CirculantBand:
+    """y[i] = sum_d band[d, i] * x[(i + off_d) mod N].
+
+    ``apply`` goes through ``cuda_band.circulant_apply``: the CUDA kernel
+    for CUDA tensors, the plain torch version for CPU tensors.
+    """
+
+    def __init__(self, offsets, band: torch.Tensor):
+        self.offsets = tuple(int(o) for o in offsets)
+        self.band = band
+        self.n = band.shape[1]
+
+    @classmethod
+    def from_numpy(cls, offsets, band, dtype, device):
+        return cls(offsets, torch.tensor(np.asarray(band), dtype=dtype,
+                                         device=device))
+
+    def apply(self, x):
+        """x: (..., N) -> (..., N)."""
+        return cuda_band.circulant_apply(self.band, self.offsets,
+                                         x.contiguous())
+
+    def diagonal(self):
+        if 0 in self.offsets:
+            return self.band[self.offsets.index(0)]
+        return torch.zeros(self.n, dtype=self.band.dtype,
+                           device=self.band.device)
+
+
+def build_operator(A, dtype, device, name=""):
+    """Device format for a (permuted) CSR matrix: a CirculantBand when the
+    offset count is at most ``cuda_band.MAX_OFFSETS`` (the JAX package's
+    ``circulant_cap``).  The AffineBand format is not ported yet."""
+    A = A.tocoo()
+    n_rows, n_cols = A.shape
+    if n_rows == n_cols:
+        off = np.mod(A.col - A.row, n_cols)
+        uniq = np.unique(off)
+        if len(uniq) <= cuda_band.MAX_OFFSETS:
+            idx = np.searchsorted(uniq, off)
+            band = np.zeros((len(uniq), n_cols),
+                            dtype=config.numpy_dtype(dtype))
+            band[idx, A.row] = A.data
+            return CirculantBand.from_numpy(uniq, band, dtype, device)
+    raise NotImplementedError(
+        f"{name or 'operator'}: not circulant within "
+        f"{cuda_band.MAX_OFFSETS} offsets; the AffineBand format is not "
+        "ported yet")
+
+
+class StencilCoupling:
+    """Class-constant P2<->P1 coupling stencil on translation-class grids.
+
+    On uniform periodic boxes the permuted P2 nodes fill a fine (Ny, Nx)
+    torus grid and the P1 nodes its stride-2 coarse grid; every nonzero of
+    the gradient G (Nu, Np) / divergence D (Np, Nu) coupling depends only
+    on (parity phase of the fine node, coarse offset).  The apply is a few
+    static slices of a wrap-padded plane plus multiply-adds.
+    """
+
+    #: (a, b) parity enumeration order for taps
+    PHASES = ((0, 0), (0, 1), (1, 0), (1, 1))
+
+    def __init__(self, kind, fine_grid, coarse_grid, offs, weights, dtype,
+                 device):
+        if kind not in ("G", "D"):
+            raise ValueError(f"kind must be 'G' or 'D', got {kind!r}")
+        self.kind = kind
+        self.fine = tuple(int(v) for v in fine_grid)
+        self.coarse = tuple(int(v) for v in coarse_grid)
+        # offs: 4-tuple (per phase) of ((dy, dx), ...) coarse offsets
+        self.offs = tuple(tuple((int(dy), int(dx)) for dy, dx in ph)
+                          for ph in offs)
+        self.extent = max((max(abs(dy), abs(dx)) for ph in self.offs
+                           for dy, dx in ph), default=0)
+        w = np.asarray(weights).astype(config.numpy_dtype(dtype))
+        self.weights = torch.as_tensor(w, device=device)
+        # the taps as Python floats (exact in the storage dtype): scalar
+        # multiplies need no device reads
+        self._w = [float(v) for v in w]
+        if kind == "G":
+            self.n_rows = self.fine[0] * self.fine[1]
+            self.n_cols = self.coarse[0] * self.coarse[1]
+        else:
+            self.n_rows = self.coarse[0] * self.coarse[1]
+            self.n_cols = self.fine[0] * self.fine[1]
+
+    def _taps(self, pad, ph, w, acc=None):
+        """``acc`` plus the phase's taps, summed in tap order."""
+        e = self.extent
+        nyc, nxc = self.coarse
+        for dy, dx in ph:
+            term = self._w[w] * pad[..., e + dy:e + dy + nyc,
+                                    e + dx:e + dx + nxc]
+            w += 1
+            acc = term if acc is None else acc + term
+        return acc, w
+
+    def apply(self, x):
+        nyc, nxc = self.coarse
+        lead = tuple(x.shape[:-1])
+        nl = len(lead)
+        e = self.extent
+        if self.kind == "G":
+            # coarse plane -> 4 fine parity phases
+            pad = _wrap_pad(x.reshape(lead + (nyc, nxc)), e)
+            phases, w = [], 0
+            for ph in self.offs:
+                acc, w = self._taps(pad, ph, w)
+                phases.append(acc)
+            ph = torch.stack(phases, dim=nl).reshape(lead + (2, 2, nyc, nxc))
+            # out[..., I, a, J, b] = ph[..., a, b, I, J]
+            axes = tuple(range(nl)) + (nl + 2, nl, nl + 3, nl + 1)
+            return ph.permute(axes).reshape(lead + (self.n_rows,))
+        # D: 4 fine parity phases -> coarse plane
+        ug = x.reshape(lead + (nyc, 2, nxc, 2))
+        acc, w = None, 0
+        for (a, b), ph in zip(self.PHASES, self.offs):
+            acc, w = self._taps(_wrap_pad(ug[..., :, a, :, b], e), ph, w,
+                                acc)
+        return acc.reshape(lead + (self.n_rows,))
+
+
+def detect_stencil_coupling(A, kind, fine_grid, coarse_grid, dtype, device,
+                            max_extent=2, tol=1e-11):
+    """Exact class-constant detection of a P2<->P1 coupling matrix.
+
+    Returns a :class:`StencilCoupling` when EVERY nonzero of ``A`` (rows
+    fine for "G", rows coarse for "D") is reproduced by a per-parity-phase
+    constant stencil on the torus grids -- each (phase, offset) group must
+    cover every coarse anchor exactly once with value spread <= tol.
+    Returns None otherwise.
+    """
+    Ny, Nx = fine_grid
+    nyc, nxc = coarse_grid
+    if nyc < 2 * max_extent + 2 or nxc < 2 * max_extent + 2:
+        return None
+    A = A.tocoo()
+    fine_idx = A.row if kind == "G" else A.col
+    coarse_idx = A.col if kind == "G" else A.row
+    fy, fx = fine_idx // Nx, fine_idx % Nx
+    a, b = fy % 2, fx % 2
+    Jy, Jx = coarse_idx // nxc, coarse_idx % nxc
+    if kind == "G":
+        dy = (Jy - fy // 2) % nyc
+        dx = (Jx - fx // 2) % nxc
+    else:
+        dy = (fy // 2 - Jy) % nyc
+        dx = (fx // 2 - Jx) % nxc
+    dy = np.where(dy > nyc // 2, dy - nyc, dy)
+    dx = np.where(dx > nxc // 2, dx - nxc, dx)
+    if abs(dy).max() > max_extent or abs(dx).max() > max_extent:
+        return None
+    span = 2 * max_extent + 1
+    key = ((a * 2 + b) * span + (dy + max_extent)) * span \
+        + (dx + max_extent)
+    order = np.argsort(key, kind="stable")
+    ks, vs = key[order], A.data[order]
+    uk, starts = np.unique(ks, return_index=True)
+    bounds = np.append(starts, len(ks))
+    m = nyc * nxc
+    scale = np.abs(A.data).max()
+    per_phase = [[] for _ in range(4)]
+    for i, k in enumerate(uk):
+        grp = vs[bounds[i]:bounds[i + 1]]
+        if len(grp) != m or np.ptp(grp) > tol * scale:
+            return None
+        ph, rem = divmod(int(k), span * span)
+        dyy, dxx = divmod(rem, span)
+        per_phase[ph].append(((dyy - max_extent, dxx - max_extent),
+                              grp[0]))
+    offs = tuple(tuple(o for o, _ in per_phase[ph]) for ph in range(4))
+    weights = np.asarray([v for ph in range(4) for _, v in per_phase[ph]])
+    return StencilCoupling(kind, fine_grid, coarse_grid, offs, weights,
+                           dtype, device)
+
+
+def combine_circulant(terms):
+    """``sum_i c_i A_i`` as ONE CirculantBand.
+
+    Coefficients may be Python floats or 0-d tensors.  Fusing the
+    Helmholtz combination (a0/k) M + nu K into one band halves the band
+    traffic of every velocity-CG iteration; the combine is one elementwise
+    pass per step.
+    """
+    ops = [op for _, op in terms]
+    union = sorted({o for op in ops for o in op.offsets})
+    if all(op.offsets == tuple(union) for op in ops):
+        band = None
+        for c, op in terms:
+            term = c * op.band
+            band = term if band is None else band + term
+    else:
+        pos = {o: i for i, o in enumerate(union)}
+        band = torch.zeros((len(union), ops[0].n), dtype=ops[0].band.dtype,
+                           device=ops[0].band.device)
+        for c, op in terms:
+            idx = torch.as_tensor([pos[o] for o in op.offsets],
+                                  device=band.device)
+            band.index_add_(0, idx, c * op.band)
+    return CirculantBand(union, band)
+
+
+# ---------------------------------------------------------------------------
+# Taylor-Hood operator suite (planar layout)
+# ---------------------------------------------------------------------------
+
+class StridedConv(NamedTuple):
+    """Static descriptor of the gather-free (strided) convection layout.
+
+    On uniform periodic boxes the P2 nodes form a regular half-spacing
+    torus grid of shape ``grid`` and every cell is one of a few
+    translation classes: its 6 nodes sit at fixed 2D offsets ``offs[c]``
+    from a stride-2 anchor lattice.
+    """
+
+    grid: tuple               # (Ny, Nx) fine-grid shape, Ny*Nx = Nu
+    offs: tuple               # ncls x nn x 2 nested int tuples
+
+
+class PlanarOps(NamedTuple):
+    """Device-side operator bundle of the planar projection step."""
+
+    M: object                 # velocity scalar mass (band op)
+    K: object                 # velocity scalar stiffness
+    L: object                 # pressure stiffness
+    G: tuple                  # per-dim pressure-gradient couplings
+    D: tuple                  # per-dim divergence couplings
+    diag_m: torch.Tensor
+    diag_k: torch.Tensor
+    diag_l: torch.Tensor
+    conv_cu: torch.Tensor     # (nc, 6) permuted cell u-node ids
+    conv_W: torch.Tensor      # (nc, nq) quadrature weights
+    conv_N2: torch.Tensor     # (nq, 6)
+    conv_g2: torch.Tensor     # (nc, nq, 6, d) physical shape gradients
+    conv_table: torch.Tensor  # transpose-scatter table
+    Mp: object = None         # pressure (P1) mass -- rotational scheme
+    diag_mp: torch.Tensor = None
+    conv_Wc: torch.Tensor = None   # (ncls, nq) per-class quad weights
+    conv_g2c: torch.Tensor = None  # (ncls, nq, nn, d) per-class gradients
+    conv_strided: StridedConv = None
+    permU: torch.Tensor = None     # lex order of the velocity nodes
+    permP: torch.Tensor = None     # lex order of the pressure nodes
+
+
+def conv_apply(ops: PlanarOps, u, cc, strided=None):
+    """Assembled convection rhs b = int(cc (u.grad)u . N), planar."""
+    if strided is not None and ops.conv_Wc is not None:
+        return _conv_apply_strided(ops, u, cc, strided)
+    dim = u.shape[0]
+    u_c = u[:, ops.conv_cu]                                  # (d, nc, 6)
+    u_q = torch.einsum("qi,dci->dcq", ops.conv_N2, u_c)
+    grad_u = torch.einsum("dci,cqie->dcqe", u_c, ops.conv_g2)
+    adv = cc * torch.einsum("ecq,dcqe->dcq", u_q, grad_u)
+    r_c = torch.einsum("cq,dcq,qi->dci", ops.conv_W, adv, ops.conv_N2)
+    flat = r_c.reshape(dim, -1)
+    pad = torch.zeros((dim, 1), dtype=flat.dtype, device=flat.device)
+    padded = torch.cat([flat, pad], dim=1)
+    return padded[:, ops.conv_table].sum(dim=2)
+
+
+def _conv_apply_strided(ops: PlanarOps, u, cc, strided: StridedConv):
+    """Gather-free convection on translation-class grids (StridedConv).
+
+    The fine grid is split into its 4 half-spacing parity phases and
+    cyclically padded by one coarse cell; every per-(class, node) extract
+    and scatter is then a static slice of a contiguous (ny, nx) plane.
+    """
+    d = u.shape[0]
+    Ny, Nx = strided.grid
+    ny, nx = Ny // 2, Nx // 2
+    ph = u.reshape(d, ny, 2, nx, 2).permute(0, 2, 4, 1, 3)
+    pad = _wrap_pad(ph, 1)
+    outp = torch.zeros((d, 2, 2, ny + 2, nx + 2), dtype=u.dtype,
+                       device=u.device)
+
+    def loc(dy, dx):
+        py, px = dy % 2, dx % 2
+        return py, px, (dy - py) // 2 + 1, (dx - px) // 2 + 1
+
+    for c, off_c in enumerate(strided.offs):
+        cols = []
+        for dy, dx in off_c:
+            py, px, sy, sx = loc(dy, dx)
+            cols.append(pad[:, py, px, sy:sy + ny, sx:sx + nx]
+                        .reshape(d, -1))
+        u_c = torch.stack(cols, dim=-1)                      # (d, m, nn)
+        u_q = torch.einsum("qi,dmi->dmq", ops.conv_N2, u_c)
+        grad_u = torch.einsum("dmi,qie->dmqe", u_c, ops.conv_g2c[c])
+        adv = cc * torch.einsum("emq,dmqe->dmq", u_q, grad_u)
+        r_c = torch.einsum("q,dmq,qi->dmi", ops.conv_Wc[c], adv,
+                           ops.conv_N2)
+        m2 = r_c.reshape(d, ny, nx, r_c.shape[-1])
+        for i, (dy, dx) in enumerate(off_c):
+            py, px, sy, sx = loc(dy, dx)
+            outp[:, py, px, sy:sy + ny, sx:sx + nx] += m2[..., i]
+    # fold the cyclic pad ring back into the interior (rows first with
+    # full columns, so corner contributions ride along)
+    outp[:, :, :, ny, :] += outp[:, :, :, 0, :]
+    outp[:, :, :, 1, :] += outp[:, :, :, ny + 1, :]
+    outp[:, :, :, :, nx] += outp[:, :, :, :, 0]
+    outp[:, :, :, :, 1] += outp[:, :, :, :, nx + 1]
+    out = outp[:, :, :, 1:ny + 1, 1:nx + 1]
+    return out.permute(0, 3, 1, 4, 2).reshape(d, -1)
+
+
+def _torus_grids(ucoords, pcoords):
+    """((Ny, Nx), (nyc, nxc)) when both node sets fill uniform row-major
+    grids with the fine one exactly double; else None."""
+    def dims(coords):
+        key = np.round(coords / 1e-9).astype(np.int64)
+        xs, ys = np.unique(key[:, 0]), np.unique(key[:, 1])
+        if len(xs) * len(ys) != len(coords):
+            return None
+        for v in (xs, ys):
+            if len(v) > 1 and np.ptp(np.diff(v)) > 1:
+                return None
+        return len(ys), len(xs)
+    fine, coarse = dims(ucoords), dims(pcoords)
+    if fine is None or coarse is None:
+        return None
+    if fine[0] != 2 * coarse[0] or fine[1] != 2 * coarse[1]:
+        return None
+    return fine, coarse
+
+
+def _is_circulant(A, perm):
+    A = A.tocoo()
+    inv = _inverse(perm)
+    off = np.mod(inv[A.col] - inv[A.row], A.shape[0])
+    return len(np.unique(off)) <= cuda_band.MAX_OFFSETS
+
+
+def _detect_strided_convection(cu_p, ucoords, W, g2):
+    """Classify cells into translation classes on the lex torus grid.
+
+    Returns ``(StridedConv, Wc, g2c)`` (host f64) exactly when the
+    permuted P2 nodes fill a uniform (Ny, Nx) grid, every cell's nodes sit
+    at class-constant offsets from an even-parity anchor, each class's
+    anchors tile the stride-2 lattice once, and the quadrature weights and
+    physical gradients are class-constant; else None (gather path).
+    """
+    key = np.round(ucoords / 1e-9).astype(np.int64)
+    xs, ys = np.unique(key[:, 0]), np.unique(key[:, 1])
+    Nx, Ny = len(xs), len(ys)
+    if Nx * Ny != len(ucoords) or Nx % 2 or Ny % 2:
+        return None
+    if (len(xs) > 1 and np.ptp(np.diff(xs)) > 1) or \
+            (len(ys) > 1 and np.ptp(np.diff(ys)) > 1):
+        return None
+    iy, ix = cu_p // Nx, cu_p % Nx
+    dy = (iy - iy[:, :1]) % Ny
+    dx = (ix - ix[:, :1]) % Nx
+    dy = np.where(dy > Ny // 2, dy - Ny, dy)
+    dx = np.where(dx > Nx // 2, dx - Nx, dx)
+    if abs(dy).max() > 2 or abs(dx).max() > 2:
+        return None
+    sig = np.concatenate([dy, dx, iy[:, :1] % 2, ix[:, :1] % 2], axis=1)
+    classes, cls_inv = np.unique(sig, axis=0, return_inverse=True)
+    cls_inv = cls_inv.reshape(-1)
+    if len(classes) > 8:
+        return None
+    m = (Ny // 2) * (Nx // 2)
+    offs, Wc, g2c = [], [], []
+    for c in range(len(classes)):
+        cells = np.where(cls_inv == c)[0]
+        if len(cells) != m:
+            return None
+        if np.ptp(W[cells], axis=0).max() > 1e-12 * abs(W).max() or \
+                np.ptp(g2[cells], axis=0).max() > 1e-9 * abs(g2).max():
+            return None
+        py, px = int(classes[c][-2]), int(classes[c][-1])
+        ay, ax = iy[cells, 0] - py, ix[cells, 0] - px
+        ids = (ay // 2) * (Nx // 2) + ax // 2
+        if not np.array_equal(np.sort(ids), np.arange(m)):
+            return None
+        offs.append(tuple((int(dy[cells[0], i] + py),
+                           int(dx[cells[0], i] + px))
+                          for i in range(cu_p.shape[1])))
+        Wc.append(W[cells[0]])
+        g2c.append(g2[cells[0]])
+    return (StridedConv(grid=(Ny, Nx), offs=tuple(offs)), np.asarray(Wc),
+            np.asarray(g2c))
+
+
+class FastTaylorHood:
+    """Gather-free scalar-operator suite for a Taylor-Hood space.
+
+    Works in lexicographic node numberings (``permU``, ``permP``) and the
+    planar velocity layout ``(dim, n_unodes)``.  Use ``permute_*`` /
+    ``unpermute_*`` at solver boundaries; keep state permuted across
+    steps.  Device tensors are made on ``device`` in ``dtype`` (default:
+    ``config.default_dtype(device)``).
+
+    Only 2D periodic structured meshes are ported so far (circulant bands,
+    stencil couplings); other meshes raise ``NotImplementedError``.
+    """
+
+    def __init__(self, space, dtype=None, device=None):
+        if space.dim != 2:
+            raise NotImplementedError("3D is not ported yet")
+        self.space = space
+        self.dim = space.dim
+        self.device = device = config.resolve_device(device)
+        self.dtype = dt = config.resolve_dtype(dtype, device)
+
+        cu = np.asarray(space.cell_unodes)
+        cp = np.asarray(space.cell_pnodes)
+        Nu, Np = space.n_unodes, space.n_pnodes
+        em = scalar_element_matrices(space)
+        M = assemble_csr(em["M2"], cu, cu, (Nu, Nu))
+        K = assemble_csr(em["K2"], cu, cu, (Nu, Nu))
+        L = assemble_csr(em["L1"], cp, cp, (Np, Np))
+        Mp = assemble_csr(em["M1"], cp, cp, (Np, Np))
+        Gs = [assemble_csr(em["G"][:, :, d, :], cu, cp, (Nu, Np))
+              for d in range(self.dim)]
+
+        ucoords, pcoords = node_coordinates(space)
+        permU = lex_permutation(ucoords)
+        permP = lex_permutation(pcoords)
+        if not (_is_circulant(K, permU) and _is_circulant(L, permP)):
+            raise NotImplementedError(
+                "operators are not circulant under the lexicographic "
+                "order; the RCM ordering and AffineBand are not ported yet")
+        self.permU, self.invU = permU, _inverse(permU)
+        self.permP, self.invP = permP, _inverse(permP)
+
+        def pu(A):
+            return A.tocsr()[permU][:, permU]
+
+        def pp(A):
+            return A.tocsr()[permP][:, permP]
+
+        kw = dict(dtype=dt, device=device)
+        self.M = build_operator(pu(M), name="mass", **kw)
+        self.K = build_operator(pu(K), name="stiffness", **kw)
+        self.L = build_operator(pp(L), name="pressure-stiffness", **kw)
+        self.Mp = build_operator(pp(Mp), name="pressure-mass", **kw)
+
+        grids = _torus_grids(ucoords, pcoords)
+        self.G, self.D = [], []
+        for d, Gd in enumerate(Gs):
+            Gp = Gd.tocsr()[permU][:, permP]
+            Dp = Gd.tocsr().T.tocsr()[permP][:, permU]
+            pair = [detect_stencil_coupling(A, kind, *grids, dt, device)
+                    if grids else None for A, kind in ((Gp, "G"), (Dp, "D"))]
+            if any(op is None for op in pair):
+                raise NotImplementedError(
+                    f"coupling {d} is not a torus stencil; the GatherOp / "
+                    "AffineBand rim formats are not ported yet")
+            self.G.append(pair[0])
+            self.D.append(pair[1])
+
+        conv = self._setup_convection()
+        self.ops = PlanarOps(
+            M=self.M, K=self.K, L=self.L, G=tuple(self.G), D=tuple(self.D),
+            diag_m=self.M.diagonal(), diag_k=self.K.diagonal(),
+            diag_l=self.L.diagonal(), Mp=self.Mp,
+            diag_mp=self.Mp.diagonal(), conv_strided=self.conv_strided,
+            permU=torch.as_tensor(permU, device=device),
+            permP=torch.as_tensor(permP, device=device), **conv)
+
+    def _setup_convection(self):
+        space = self.space
+        dev, np_dt = self.device, config.numpy_dtype(self.dtype)
+        cu_p = self.invU[np.asarray(space.cell_unodes)]
+        W = np.asarray(space.integration_weights(), dtype=np.float64)
+        g2 = np.einsum("qia,cqae->cqie", np.asarray(space.G2, np.float64),
+                       np.asarray(space.Jinv_q, np.float64))
+        from navierstokes_tpu_torch.parallel.sharded import \
+            build_scatter_transpose
+
+        tab, _ = build_scatter_transpose(cu_p.astype(np.int32),
+                                         space.n_unodes)
+
+        def dev_f(a):
+            return torch.as_tensor(np.asarray(a, dtype=np_dt), device=dev)
+
+        conv = dict(conv_cu=torch.as_tensor(cu_p, device=dev),
+                    conv_W=dev_f(W), conv_N2=dev_f(space.N2),
+                    conv_g2=dev_f(g2),
+                    conv_table=torch.as_tensor(tab.astype(np.int64),
+                                               device=dev))
+        # detect on the storage-dtype values, as the JAX engine does
+        got = _detect_strided_convection(
+            cu_p, node_coordinates(space)[0],
+            np.asarray(W.astype(np_dt), np.float64),
+            np.asarray(g2.astype(np_dt), np.float64))
+        self.conv_strided = None
+        if got is not None:
+            self.conv_strided, Wc, g2c = got
+            conv.update(conv_Wc=dev_f(Wc), conv_g2c=dev_f(g2c))
+        return conv
+
+    # -- permutation helpers (node axis last) --------------------------------
+    @staticmethod
+    def _take(a, idx):
+        return a[..., torch.as_tensor(idx, device=a.device)]
+
+    def permute_velocity(self, u_planar):
+        return self._take(u_planar, self.permU)
+
+    def unpermute_velocity(self, u_planar):
+        return self._take(u_planar, self.invU)
+
+    def permute_pressure(self, p):
+        return self._take(p, self.permP)
+
+    def unpermute_pressure(self, p):
+        return self._take(p, self.invP)
+
+
+# ---------------------------------------------------------------------------
+# operator bundles as NumPy dicts (state carried across from either engine)
+# ---------------------------------------------------------------------------
+
+_DIAGS = ("diag_m", "diag_k", "diag_l", "diag_mp")
+_CONV = ("conv_cu", "conv_W", "conv_N2", "conv_g2", "conv_table",
+         "conv_Wc", "conv_g2c")
+
+
+def planar_ops_to_numpy(fast) -> dict:
+    """The operator bundle of an engine as a dict of NumPy arrays.
+
+    ``fast`` is a FastTaylorHood of either package: only the attributes
+    both share are read (``ops``, ``conv_strided``, ``permU``, ``permP``),
+    and every array goes through ``numpy.asarray``.  Only circulant bands
+    and stencil couplings are carried.
+    """
+    ops = fast.ops
+
+    def band(op):
+        return {"offsets": np.asarray(op.offsets, np.int64),
+                "band": _to_numpy(op.band)}
+
+    def stencil(op):
+        return {"kind": op.kind, "fine": tuple(op.fine),
+                "coarse": tuple(op.coarse), "offs": op.offs,
+                "weights": _to_numpy(op.weights)}
+
+    d = {name: band(getattr(ops, name)) for name in ("M", "K", "L", "Mp")}
+    d["G"] = [stencil(op) for op in ops.G]
+    d["D"] = [stencil(op) for op in ops.D]
+    for name in _DIAGS + _CONV:
+        val = getattr(ops, name)
+        d[name] = None if val is None else _to_numpy(val)
+    cs = fast.conv_strided
+    d["conv_strided"] = None if cs is None else {"grid": tuple(cs.grid),
+                                                 "offs": cs.offs}
+    d["permU"] = np.asarray(fast.permU, np.int64)
+    d["permP"] = np.asarray(fast.permP, np.int64)
+    return d
+
+
+def planar_ops_from_numpy(d: dict, device=None, dtype=None) -> PlanarOps:
+    """The port's PlanarOps from :func:`planar_ops_to_numpy`'s dict."""
+    device = config.resolve_device(device)
+    dtype = config.resolve_dtype(dtype, device)
+
+    def band(e):
+        return CirculantBand.from_numpy(e["offsets"], e["band"], dtype,
+                                        device)
+
+    def stencil(e):
+        return StencilCoupling(e["kind"], e["fine"], e["coarse"], e["offs"],
+                               e["weights"], dtype, device)
+
+    # torch.tensor copies: arrays read from JAX are read-only views
+    def floats(a):
+        return None if a is None else torch.tensor(
+            np.asarray(a), dtype=dtype, device=device)
+
+    def ints(a):
+        return torch.tensor(np.asarray(a), dtype=torch.int64, device=device)
+
+    cs = d["conv_strided"]
+    return PlanarOps(
+        M=band(d["M"]), K=band(d["K"]), L=band(d["L"]), Mp=band(d["Mp"]),
+        G=tuple(stencil(e) for e in d["G"]),
+        D=tuple(stencil(e) for e in d["D"]),
+        **{name: floats(d[name]) for name in _DIAGS},
+        conv_cu=ints(d["conv_cu"]), conv_table=ints(d["conv_table"]),
+        conv_W=floats(d["conv_W"]), conv_N2=floats(d["conv_N2"]),
+        conv_g2=floats(d["conv_g2"]), conv_Wc=floats(d["conv_Wc"]),
+        conv_g2c=floats(d["conv_g2c"]),
+        conv_strided=None if cs is None else StridedConv(
+            grid=tuple(cs["grid"]),
+            offs=tuple(tuple(tuple(o) for o in c) for c in cs["offs"])),
+        permU=ints(d["permU"]), permP=ints(d["permP"]))
