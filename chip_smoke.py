@@ -1,6 +1,6 @@
 """Drive the PyTorch/CUDA port on one card and check it.
 
-    python3 chip_smoke.py [--profile DIR]
+    python3 chip_smoke.py [--profile DIR] [--baseline DIR]
 
 Phases, each printing one JSON line (any failure raises and exits
 non-zero):
@@ -10,23 +10,35 @@ non-zero):
 2. build    -- compile the band kernels (navierstokes_tpu_torch/csrc/band.cu)
                with nvcc and load them.
 3. kernels  -- hold each kernel against its plain torch version on the
-               card (f32 and f64), and time both at the main path's shapes
-               with CUDA events (median of 30 runs after warm-up).
+               card (f32 and f64): the apply on its cases, the PCG on both
+               routes (cluster, and grid with a resident and a streamed
+               band; masked and mean-free cases on each), with each case's
+               route.
 4. main     -- the generic banded SBDF-2 projection step on the periodic
                Taylor-Green vortex at 128^2, f32, configured as bench.py's
                generic path: Re = 100, dt = 1e-3, cg_iters = (10, 60, 6),
                one BDF-1 step and 3 BDF-2 warm-up steps, then 200 timed
                BDF-2 steps.  Requires finite values, amp_rel_err < 0.05 and
-               launches of both kernels; prints DoF-steps/s and the residual
-               triple of one extra step.
-5. parity   -- 10 steps at 128^2, f64, on the card (kernels) and on the CPU
+               launches of both kernels; prints DoF-steps/s, the residual
+               triple of one extra step and the launch counts.
+5. timing   -- at the main path's f32 shapes, for the apply and each PCG
+               sub-solve: the device-only time (torch.profiler kernel time
+               over 20 launches), the event-timed wrapper call (median of
+               30 CUDA-event timings after warm-up), the plain version,
+               the bound (bytes or operations at the card's peaks), the
+               launches per step and, for the apply, one torch.sparse.mm of
+               the same matrix as CSR.
+6. parity   -- 10 steps at 128^2, f64, on the card (kernels) and on the CPU
                (plain versions) from the same state; u and p must agree to
                1e-9 relative.
-6. the ``kernels`` line, then the card's nvidia-smi line, then the last
+7. the ``kernels`` line, then the card's nvidia-smi line, then the last
    line ``{"ok": true, "device": {...}}``.
 
 ``--profile DIR`` also writes a torch.profiler table of 10 main-path steps
-to DIR.
+to DIR.  ``--baseline DIR`` also times the kernels of another checkout of
+this repository (its ``navierstokes_tpu_torch``, built from its own
+source) on the same inputs in the same process, in the order baseline,
+this, this, baseline.
 """
 
 import argparse
@@ -60,7 +72,12 @@ N_PARITY = 10
 ALPHAS = ((1.0, -1.0, 0.0), (1.5, -2.0, 0.5))
 ETAS = ((1.0, 0.0), (2.0, -1.0))
 RUNS = 30
+PROFILE_LAUNCHES = 20
 DEVICE = "cuda:0"
+# NVIDIA H100 SXM data sheet: HBM3 bandwidth, and the peak rates outside
+# the tensor cores
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
 REPLACES = {
     "circulant_apply":
         "navierstokes_tpu/assembly/pallas_band.py:220 (pallas_call :106)",
@@ -105,10 +122,67 @@ def torus_offsets(n, W):
                    for j in (-2, -1, 0, 1, 2)})
 
 
-def spd_case(kind, dtype, dev):
-    """The CPU tests' PCG cases (tests/test_torch_band_kernels.py)."""
+def device_ms(fn):
+    """Device-only time of ``fn`` in ms: the band kernels' time in a
+    torch.profiler trace of PROFILE_LAUNCHES calls, over the count."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(PROFILE_LAUNCHES):
+            fn()
+        torch.cuda.synchronize()
+    total = 0.0
+    for e in prof.key_averages():
+        if "circulant_" in e.key:
+            total += getattr(e, "self_device_time_total", None) or \
+                getattr(e, "self_cuda_time_total", 0.0)
+    if total <= 0.0:
+        raise RuntimeError("torch.profiler recorded no kernel time")
+    return total / PROFILE_LAUNCHES / 1e3
+
+
+def bound(bytes_moved, flops, dtype):
+    """(bound_ms, bound_by): the least time for the work at the card's
+    peak memory rate and peak rate for ``dtype``."""
+    t_bytes = bytes_moved / PEAK_BYTES_PER_S
+    t_ops = flops / PEAK_FLOPS[dtype]
+    return 1e3 * max(t_bytes, t_ops), \
+        "bytes" if t_bytes >= t_ops else "operations"
+
+
+def apply_work(K, n, batch, esize):
+    """Bytes (band, x and y once each) and FLOPs of one band apply."""
+    return (K * n + 2 * batch * n) * esize, 2 * K * n * batch
+
+
+def pcg_work(case):
+    """Bytes (each input read once, x and r written once) and FLOPs of one
+    whole solve with these arguments, counted per row as _pcg does the
+    work: each iteration a matvec (2K; masked 5 more: m*v before, and
+    m*w + (1-m)*v after), two dot products and the x, r, z and p updates
+    (11; masked 1 more, mean-free 2 more); the setup counts as one more
+    iteration."""
+    band, _, b, x0, invd, maskv, iters, meanfree = case
+    K, n = band.shape
+    rows = b.numel()
+    masked = torch.is_tensor(maskv)
+    esize = b.element_size()
+    nbytes = band.numel() + 4 * rows + invd.numel() + \
+        (maskv.numel() if masked else 0)
+    matvec = 2 * K + (5 if masked else 0)
+    per_iter = matvec + 11 + (1 if masked else 0) + (2 if meanfree else 0)
+    flops = rows * ((iters + 1) * per_iter)
+    return nbytes * esize, flops
+
+
+def spd_case(kind, dtype, dev, n=4096, W=128):
+    """The CPU tests' PCG cases (tests/test_torch_band_kernels.py) at
+    n = 4096; at a larger ``n`` the same construction routes to the grid
+    kernel."""
     rng = np.random.default_rng(11)
-    n, W = 4096, 128
     offs = sorted({(c + j) % n for c in (0, W, n - W) for j in (-1, 0, 1)})
     band = np.full((len(offs), n), -1.0)
     band[offs.index(0)] = 2.0 * len(offs)
@@ -133,6 +207,29 @@ def spd_case(kind, dtype, dev):
     mask = maskv if np.isscalar(maskv) else t(maskv)
     return (t(band), offs, t(b), t(x0), t(1.0 / band[offs.index(0)]), mask,
             25, meanfree)
+
+
+def streamed_case(dtype, dev, n=1 << 20, W=1024, batch=2, iters=10):
+    """A random SPD band whose slice does not fit in shared memory (the
+    512^2 velocity shape: K = 23, N = 1,048,576, 2 planes): a constant
+    random value on each offset pair (so symmetric) and a random diagonal
+    that dominates its row."""
+    rng = np.random.default_rng(12)
+    half = (1, 2, 3, 4, 5, W - 1, W, W + 1, 2 * W - 1, 2 * W, 2 * W + 1)
+    offs = sorted({0} | {h % n for h in half} | {-h % n for h in half})
+    band = np.empty((len(offs), n))
+    vals = {h: -0.5 - rng.random() for h in half}
+    for k, o in enumerate(offs):
+        if o:
+            band[k] = vals[o if o in vals else n - o]
+    d = offs.index(0)
+    band[d] = np.abs(np.delete(band, d, axis=0)).sum(0) + 1.0 + rng.random(n)
+
+    def t(a):
+        return torch.tensor(a, dtype=dtype, device=dev)
+
+    return (t(band), offs, t(rng.standard_normal((batch, n))),
+            t(np.zeros((batch, n))), t(1.0 / band[d]), 1.0, iters, False)
 
 
 def record_subsolves(step, state):
@@ -265,13 +362,36 @@ def phase_apply(st):
     return err_main
 
 
+def pcg_route(case):
+    band, _, b, *_ = case
+    n = band.shape[1]
+    plan = cuda_band.pcg_plan(n, band.shape[0], b.numel() // n, b.dtype,
+                              torch.is_tensor(case[5]))
+    if plan.route == "grid" and not plan.resident:
+        return "grid-streamed"
+    return plan.route
+
+
+def check_subsolve_routes(subs):
+    """The 128^2 velocity solves take the grid kernel with a resident
+    band, the Poisson solve the cluster kernel."""
+    routes = {k: pcg_route(v) for k, v in subs.items()}
+    if routes != {"helmholtz": "grid", "poisson": "cluster", "mass": "grid"}:
+        raise AssertionError(f"sub-solve routes {routes}")
+
+
 def phase_pcg(st):
-    """circulant_pcg against its plain version on the CPU tests' cases and
-    the three sub-solves of one step; returns (max abs error on x at the
-    main path's sub-solves in f32, those f32 sub-solves)."""
-    cases = [(k, spd_case(k, dtype, st.dev), dtype)
+    """circulant_pcg against its plain version on both routes: the CPU
+    tests' cases, the same construction at n = 65,536 (grid route), a
+    streamed band, and the three sub-solves of one step in f32 and f64.
+    Returns (max abs error on x at the main path's sub-solves in f32,
+    those f32 sub-solves)."""
+    cases = [(f"{k}_n{n}", spd_case(k, dtype, st.dev, n=n, W=W), dtype)
+             for n, W in ((4096, 128), (65536, 256))
              for k in ("plain", "masked", "meanfree")
              for dtype in (torch.float32, torch.float64)]
+    cases.append(("streamed_n1048576", streamed_case(torch.float32, st.dev),
+                  torch.float32))
     subs = {}
     for dtype, ops in ((torch.float32, st.fast32.ops),
                        (torch.float64, st.ops64)):
@@ -280,7 +400,7 @@ def phase_pcg(st):
                                        (u, u, p, torch.zeros_like(p)))
         cases += [(f"{k}_{N_POINTS}", v, dtype)
                   for k, v in subs[dtype].items()]
-    report, err_main = [], 0.0
+    report, err_main, seen = [], 0.0, set()
     for name, case, dtype in cases:
         x, r = cuda_band.circulant_pcg(*case)
         x_ref, r_ref = cuda_band.circulant_pcg_plain(*case)
@@ -296,42 +416,124 @@ def phase_pcg(st):
                 abs(rn - rn_ref) <= 1e-10 * rn_ref + 1e-12 * bn
         else:
             ok = err <= 1e-4 and abs(rn - rn_ref) <= 1e-3 * rn_ref + 1e-6
+        route = pcg_route(case)
         if not ok:
-            raise AssertionError(f"circulant_pcg {name} {dtype}: rel err "
-                                 f"{err}, |r| {rn} vs {rn_ref}")
+            raise AssertionError(f"circulant_pcg {name} {dtype} ({route}): "
+                                 f"rel err {err}, |r| {rn} vs {rn_ref}")
         if name.endswith(f"_{N_POINTS}") and dtype == torch.float32:
             err_main = max(err_main, abs_err(x, x_ref))
-        report.append({"case": name, "dtype": str(dtype), "rel_err": err,
-                       "res": rn, "res_plain": rn_ref})
+        masked, meanfree = torch.is_tensor(case[5]), bool(case[7])
+        seen |= {(route, str(dtype)), (route, "masked" if masked else
+                                       "meanfree" if meanfree else "plain")}
+        report.append({"case": name, "dtype": str(dtype), "route": route,
+                       "rel_err": err, "res": rn, "res_plain": rn_ref})
+    need = {("cluster", "torch.float32"), ("cluster", "torch.float64"),
+            ("grid", "torch.float32"), ("grid", "torch.float64"),
+            ("grid-streamed", "torch.float32"), ("cluster", "masked"),
+            ("cluster", "meanfree"), ("grid", "masked"), ("grid", "meanfree")}
+    if need - seen:
+        raise AssertionError(f"routes not exercised: {sorted(need - seen)}")
+    for dtype in (torch.float32, torch.float64):
+        check_subsolve_routes(subs[dtype])
     emit({"phase": "kernels", "kernel": "circulant_pcg", "cases": report})
     return err_main, subs[torch.float32]
 
 
-def phase_timing(st, subs32, smi):
-    """Kernel and plain times at the main path's shapes (f32): the mass
-    apply of a velocity pair, and each of the three sub-solves of one
-    step.  Returns {kernel: {case: (kernel ms, plain ms)}}."""
+def csr_of(op):
+    """The CirculantBand ``op`` as a CSR matrix (for torch.sparse.mm)."""
+    n, rows = op.n, torch.arange(op.n, device=op.band.device)
+    cols = torch.cat([(rows + o) % n for o in op.offsets])
+    coo = torch.sparse_coo_tensor(
+        torch.stack([rows.repeat(len(op.offsets)), cols]),
+        op.band.reshape(-1), (n, n))
+    return coo.coalesce().to_sparse_csr()
+
+
+def phase_timing(st, subs32, smi, launches_per_step):
+    """Times at the main path's shapes (f32): the mass apply of a velocity
+    pair, and each of the three sub-solves of one step.  Returns
+    {kernel: {case: {...}}} with ms (event-timed wrapper call), device_ms,
+    plain_ms, bound_ms, bound_by and library_ms."""
     M = st.fast32.M
     xM = torch.tensor(np.random.default_rng(8).standard_normal((2, M.n)),
                       dtype=torch.float32, device=st.dev)
-    times = {
-        "circulant_apply": {"M_b2": (
-            time_ms(lambda: cuda_band.circulant_apply(M.band, M.offsets,
-                                                      xM)),
-            time_ms(lambda: cuda_band.circulant_apply_plain(
-                M.band, M.offsets, xM)))},
-        "circulant_pcg": {
-            name: (time_ms(lambda c=case: cuda_band.circulant_pcg(*c)),
-                   time_ms(lambda c=case: cuda_band.circulant_pcg_plain(*c)))
-            for name, case in subs32.items()}}
-    emit({"phase": "timing", "unit": "ms (median of CUDA-event times)",
-          "nvidia_smi": smi,
+    A, xT = csr_of(M), xM.t().contiguous()
+    y = cuda_band.circulant_apply(M.band, M.offsets, xM)
+    lib_err = rel_err(torch.sparse.mm(A, xT).t(), y)
+    if not lib_err <= 1e-6:
+        raise AssertionError(f"torch.sparse.mm disagrees: {lib_err}")
+    b_ms, b_by = bound(*apply_work(len(M.offsets), M.n, 2, 4), torch.float32)
+    times = {"circulant_apply": {"M_b2": {
+        "ms": time_ms(lambda: cuda_band.circulant_apply(M.band, M.offsets,
+                                                        xM)),
+        "device_ms": device_ms(lambda: cuda_band.circulant_apply(
+            M.band, M.offsets, xM)),
+        "plain_ms": time_ms(lambda: cuda_band.circulant_apply_plain(
+            M.band, M.offsets, xM)),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": time_ms(lambda: torch.sparse.mm(A, xT)),
+        "launches_per_step": launches_per_step["circulant_apply"]}},
+        "circulant_pcg": {}}
+    for name, case in subs32.items():
+        b_ms, b_by = bound(*pcg_work(case), torch.float32)
+        times["circulant_pcg"][name] = {
+            "route": pcg_route(case), "iters": case[6],
+            "ms": time_ms(lambda c=case: cuda_band.circulant_pcg(*c)),
+            "device_ms": device_ms(lambda c=case: cuda_band.circulant_pcg(*c)),
+            "plain_ms": time_ms(lambda c=case: cuda_band.circulant_pcg_plain(
+                *c)),
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "launches_per_step": 1}
+    # the three solves of a step as one piece of work
+    work = [pcg_work(c) for c in subs32.values()]
+    b_ms, b_by = bound(sum(w[0] for w in work), sum(w[1] for w in work),
+                       torch.float32)
+    per = times["circulant_pcg"].values()
+    times["circulant_pcg_step"] = {
+        key: sum(t[key] for t in per)
+        for key in ("ms", "device_ms", "plain_ms")}
+    times["circulant_pcg_step"].update(
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        launches_per_step=launches_per_step["circulant_pcg"])
+    emit({"phase": "timing", "unit": "ms", "nvidia_smi": smi,
+          "ms": "median of CUDA-event times of one wrapper call",
+          "device_ms": "torch.profiler kernel time per launch",
           "shapes": {"M_b2": f"band {len(M.offsets)}x{M.n}, x 2x{M.n}, f32",
                      "circulant_pcg": f"the sub-solves of one {N_POINTS}^2 "
                                       "step, f32"},
-          "times": {k: {c: {"kernel": t[0], "plain": t[1]}
-                        for c, t in v.items()} for k, v in times.items()}})
+          "library": "torch.sparse.mm(CSR of M, x^T)",
+          "times": times})
     return times
+
+
+def phase_baseline(st, subs32, smi, baseline_dir):
+    """The kernels of another checkout against this one on the same
+    inputs, in the order baseline, this, this, baseline."""
+    import importlib.util
+
+    path = os.path.join(baseline_dir, "navierstokes_tpu_torch", "assembly",
+                        "cuda_band.py")
+    spec = importlib.util.spec_from_file_location("baseline_cuda_band", path)
+    base = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(base)
+    base.load_library()
+    M = st.fast32.M
+    xM = torch.tensor(np.random.default_rng(8).standard_normal((2, M.n)),
+                      dtype=torch.float32, device=st.dev)
+    calls = {"circulant_apply/M_b2": lambda mod: (
+        lambda: mod.circulant_apply(M.band, M.offsets, xM))}
+    for name, case in subs32.items():
+        calls[f"circulant_pcg/{name}"] = lambda mod, c=case: (
+            lambda: mod.circulant_pcg(*c))
+    out = {}
+    for name, make in calls.items():
+        rows = {"baseline": [], "this": []}
+        for who in ("baseline", "this", "this", "baseline"):
+            fn = make(base if who == "baseline" else cuda_band)
+            rows[who].append({"ms": time_ms(fn), "device_ms": device_ms(fn)})
+        out[name] = rows
+    emit({"phase": "baseline", "dir": baseline_dir, "nvidia_smi": smi,
+          "unit": "ms", "times": out})
 
 
 def phase_main(st, smi, profile_dir):
@@ -411,6 +613,8 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", default=None, metavar="DIR",
                     help="write a torch.profiler table of 10 steps here")
+    ap.add_argument("--baseline", default=None, metavar="DIR",
+                    help="also time the kernels of the checkout in DIR")
     args = ap.parse_args()
 
     smi, kind = phase_device()
@@ -418,25 +622,29 @@ def main():
     st = Setup(torch.device(DEVICE))
     err_apply = phase_apply(st)
     err_pcg, subs32 = phase_pcg(st)
-    times = phase_timing(st, subs32, smi)
     launches = phase_main(st, smi, args.profile)
+    steps = N_WARMUP + N_STEPS + 1
+    times = phase_timing(st, subs32, smi,
+                         {k: v / steps for k, v in launches.items()})
+    if args.baseline:
+        phase_baseline(st, subs32, smi, args.baseline)
     phase_parity(st)
 
     src = "navierstokes_tpu_torch/csrc/band.cu"
+    keys = ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "launches_per_step")
     apply_t = times["circulant_apply"]["M_b2"]
-    pcg_t = [sum(t[i] for t in times["circulant_pcg"].values())
-             for i in (0, 1)]
+    pcg_t = times["circulant_pcg_step"]
     print(json.dumps({"kernels": [
         {"name": "circulant_apply", "route": "cuda", "source": src,
          "replaces": REPLACES["circulant_apply"],
          "launches": launches["circulant_apply"],
-         "max_abs_err": err_apply, "ms": apply_t[0],
-         "plain_ms": apply_t[1]},
+         "max_abs_err": err_apply, **{k: apply_t[k] for k in keys}},
         {"name": "circulant_pcg", "route": "cuda", "source": src,
          "replaces": REPLACES["circulant_pcg"],
          "launches": launches["circulant_pcg"],
-         "max_abs_err": err_pcg, "ms": pcg_t[0],
-         "plain_ms": pcg_t[1]}]}), flush=True)
+         "max_abs_err": err_pcg, **{k: pcg_t[k] for k in keys}}]}),
+        flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

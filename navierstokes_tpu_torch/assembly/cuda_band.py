@@ -18,12 +18,19 @@ first time a CUDA tensor reaches a wrapper (the file name carries a hash
 of the source and flags, so an edited ``band.cu`` rebuilds), and loaded
 with ``ctypes``.  A missing ``nvcc`` or a failed build raises.
 
+The PCG has two kernels; :func:`pcg_plan`, a pure function of the shapes
+and dtype, picks one: route ``"cluster"`` (A) keeps a system that fits in
+one thread-block cluster's shared memory there for the whole solve, route
+``"grid"`` (B) runs one cooperative grid of at most one CTA per SM.  A
+launch that fails raises; the wrapper never tries the other route.
+
 ``LAUNCHES`` counts kernel launches per wrapper; it is incremented where a
 kernel is launched and nowhere else.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -31,6 +38,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
+from typing import NamedTuple
 
 import torch
 
@@ -40,6 +48,11 @@ BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 MAX_OFFSETS = 96          # kMaxOffsets in band.cu (build_operator's cap)
+GRID_THREADS = 1024       # kGridThreads in band.cu (route B)
+CLUSTER_SIZE = 16         # route A: CTAs of the (non-portable) cluster
+H100_SMS = 132            # route B: at most one CTA per SM
+SMEM_PER_BLOCK = 232_448  # the opt-in shared memory of one sm_90 block
+SMEM_STATIC = 8_192       # reserved for the PCG kernels' static arrays
 
 LAUNCHES = {"circulant_apply": 0, "circulant_pcg": 0}
 
@@ -106,47 +119,65 @@ def load_library() -> ctypes.CDLL:
         fn = getattr(lib, f"ns_circulant_apply_{suffix}")
         fn.argtypes = [P, P, I, P, P, LL, LL, P]
         fn.restype = I
-        fn = getattr(lib, f"ns_circulant_pcg_grid_{suffix}")
-        fn.argtypes = [LL, ctypes.POINTER(I)]
+        fn = getattr(lib, f"ns_circulant_pcg_prepare_{suffix}")
+        fn.argtypes = [I, I, I, I]
         fn.restype = I
         fn = getattr(lib, f"ns_circulant_pcg_{suffix}")
-        fn.argtypes = [P, P, I, LL, LL, P, P, P, LL, P, LL, I, I,
-                       P, P, P, P, P, I, P]
+        fn.argtypes = [I, I, I, I, I, P, P, I, LL, LL, P, P, P, I, P, I, I,
+                       I, P, P, P, P]
         fn.restype = I
     return lib
 
 
-def _check(lib, err: int, what: str) -> None:
+@functools.lru_cache(maxsize=None)
+def _kernel_fn(name: str, dtype: torch.dtype):
+    """The ctypes function ``ns_<name>_<f32|f64>``, resolved once."""
+    suffix = "f32" if dtype == torch.float32 else "f64"
+    return getattr(load_library(), f"ns_{name}_{suffix}")
+
+
+def _check(err: int, what: str) -> None:
     if err != 0:
-        msg = lib.ns_error_string(err).decode()
+        msg = load_library().ns_error_string(err).decode()
         raise RuntimeError(f"{what} failed: CUDA error {err} ({msg})")
 
 
-@functools.lru_cache(maxsize=64)
-def _device_offsets(offsets: tuple, device: torch.device) -> torch.Tensor:
-    return torch.tensor(offsets, dtype=torch.int32, device=device)
+def _on(device: torch.device):
+    """``torch.cuda.device(device)`` unless it is the current device."""
+    if device.index is None or device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
 
 
-def _suffix(dtype) -> str:
-    return "f32" if dtype == torch.float32 else "f64"
-
-
-def _stream(device) -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+def _stream(device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
 
 
 # ---------------------------------------------------------------------------
 # validation shared by the kernels and the plain versions
 # ---------------------------------------------------------------------------
 
-def _check_offsets(offsets, n: int) -> tuple:
-    offsets = tuple(int(o) for o in offsets)
+@functools.lru_cache(maxsize=256)
+def _checked_offsets(offsets: tuple, n: int):
+    """``offsets`` validated against ``n``, once per distinct band shape:
+    ``(offsets, ctypes int array)`` for the kernels' parameters."""
     if not 1 <= len(offsets) <= MAX_OFFSETS:
         raise ValueError(f"{len(offsets)} offsets: the band kernels take "
                          f"1 to {MAX_OFFSETS}")
     if not all(0 <= o < n for o in offsets):
         raise ValueError(f"offsets must lie in [0, {n})")
-    return offsets
+    return offsets, (ctypes.c_int * len(offsets))(*offsets)
+
+
+def _check_offsets(offsets, n: int):
+    return _checked_offsets(tuple(int(o) for o in offsets), int(n))
+
+
+def _check_index_range(K: int, n: int, batch: int) -> None:
+    """The kernels index with 32-bit integers."""
+    if n >= 1 << 30 or batch * n >= 1 << 31 or K * n >= 1 << 31:
+        raise ValueError(f"band {K}x{n} on {batch} planes: the CUDA kernels "
+                         "take N < 2^30, B*N < 2^31 and K*N < 2^31")
 
 
 def _check_tensors(named: dict, device, dtype) -> None:
@@ -166,14 +197,14 @@ def _validate_apply(band, offsets, x):
     if band.ndim != 2:
         raise ValueError(f"band must be (K, N), got {tuple(band.shape)}")
     n = band.shape[1]
-    offsets = _check_offsets(offsets, n)
+    offsets, offs_c = _check_offsets(offsets, n)
     if band.shape[0] != len(offsets):
         raise ValueError(f"band has {band.shape[0]} rows for "
                          f"{len(offsets)} offsets")
     if x.ndim < 1 or x.shape[-1] != n:
         raise ValueError(f"x must be (..., {n}), got {tuple(x.shape)}")
     _check_tensors({"band": band, "x": x}, x.device, x.dtype)
-    return offsets
+    return offsets, offs_c
 
 
 # ---------------------------------------------------------------------------
@@ -182,7 +213,7 @@ def _validate_apply(band, offsets, x):
 
 def circulant_apply_plain(band, offsets, x):
     """y[..., i] = sum_k band[k, i] * x[..., (i + off_k) mod N] (torch)."""
-    offsets = _validate_apply(band, offsets, x)
+    offsets, _ = _validate_apply(band, offsets, x)
     n = band.shape[1]
     x2 = torch.cat([x, x], dim=-1)
     wins = torch.stack([x2[..., o:o + n] for o in offsets], dim=0)
@@ -198,16 +229,16 @@ def circulant_apply(band, offsets, x):
     """
     if not x.is_cuda:
         return circulant_apply_plain(band, offsets, x)
-    offsets = _validate_apply(band, offsets, x)
-    lib = load_library()
+    offsets, offs_c = _validate_apply(band, offsets, x)
     n = band.shape[1]
+    batch = x.numel() // n
+    _check_index_range(len(offsets), n, batch)
+    fn = _kernel_fn("circulant_apply", x.dtype)
     y = torch.empty_like(x)
-    offs = _device_offsets(offsets, x.device)
-    with torch.cuda.device(x.device):
-        err = getattr(lib, f"ns_circulant_apply_{_suffix(x.dtype)}")(
-            band.data_ptr(), offs.data_ptr(), len(offsets), x.data_ptr(),
-            y.data_ptr(), n, x.numel() // n, _stream(x.device))
-    _check(lib, err, "circulant_apply")
+    with _on(x.device):
+        err = fn(band.data_ptr(), offs_c, len(offsets), x.data_ptr(),
+                 y.data_ptr(), n, batch, _stream(x.device))
+    _check(err, "circulant_apply")
     LAUNCHES["circulant_apply"] += 1
     return y
 
@@ -216,13 +247,79 @@ def circulant_apply(band, offsets, x):
 # B. circulant_pcg
 # ---------------------------------------------------------------------------
 
+class PcgPlan(NamedTuple):
+    """How :func:`circulant_pcg` runs one solve on the card."""
+    route: str         # "cluster" (route A) or "grid" (route B)
+    ctas: int          # CTAs of the cluster or of the cooperative grid
+    smem_bytes: int    # dynamic shared memory per CTA
+    rows: int          # rows of N owned by one CTA
+    resident: bool     # the band slice sits in shared memory
+
+
+_ROUTE_CODE = {"cluster": 0, "grid": 1}
+
+
+@functools.lru_cache(maxsize=256)
+def pcg_plan(n: int, K: int, batch: int, dtype: torch.dtype,
+             has_mask: bool) -> PcgPlan:
+    """The route, CTA count and shared memory of one PCG solve.
+
+    Route A (``"cluster"``) when the band and the state of every row --
+    the (z, p) pairs of two p buffers, x, r, Ap, the inverse diagonal and,
+    masked, the mask, one of each per plane -- fit in the shared memory of
+    a cluster of ``CLUSTER_SIZE`` CTAs, each owning a power-of-two row
+    range (16 CTAs beat 8 on the 128^2 Poisson solve in f32 and f64: the
+    matvec and item loops halve and the barrier costs about the same).  Otherwise route B (``"grid"``): one CTA of ``GRID_THREADS``
+    threads per ``GRID_THREADS`` (plane, row) items, at most one per SM of
+    an H100, each owning ``ceil(n / ctas)`` rows of every plane, with its
+    band slice resident in shared memory when it fits and streamed from
+    global memory when not.
+    """
+    esize = 4 if dtype == torch.float32 else 8
+    budget = SMEM_PER_BLOCK - SMEM_STATIC
+    vectors = 8 + bool(has_mask)
+    rows = 1 << (-(-n // CLUSTER_SIZE) - 1).bit_length()
+    smem = rows * (K + batch * vectors) * esize
+    if smem <= budget:
+        return PcgPlan("cluster", CLUSTER_SIZE, smem, rows, True)
+    ctas = min(H100_SMS, -(-(batch * n) // GRID_THREADS))
+    rows = -(-n // ctas)
+    band = K * rows * esize
+    resident = band <= budget
+    return PcgPlan("grid", ctas, band if resident else 0, rows, resident)
+
+
+@functools.lru_cache(maxsize=64)
+def _prepared(plan: PcgPlan, dtype: torch.dtype, device: torch.device,
+              masked: bool):
+    """Opt the plan's kernel into its shared memory and check that its
+    CTAs can be co-resident, once per plan and device; raises if not."""
+    with _on(device):
+        _check(_kernel_fn("circulant_pcg_prepare", dtype)(
+            _ROUTE_CODE[plan.route], plan.ctas, plan.smem_bytes,
+            int(masked)),
+            f"circulant_pcg {plan.route} route ({plan.ctas} CTAs, "
+            f"{plan.smem_bytes} B shared memory each)")
+    return plan
+
+
+@functools.lru_cache(maxsize=32)
+def _grid_scratch(plan: PcgPlan, n: int, batch: int, dtype: torch.dtype,
+                  device: torch.device, stream: int) -> torch.Tensor:
+    """Route B's scratch ((z, p) pairs of two p buffers, Ap, three rows of
+    block partials), allocated once per plan and reused by every solve on
+    ``stream`` (the current stream when it is made)."""
+    return torch.empty(5 * batch * n + 3 * plan.ctas, dtype=dtype,
+                       device=device)
+
+
 def _validate_pcg(band, offsets, b, x0, inv_diag, maskv, iters, meanfree):
     """Checks and normalises the PCG operands.
 
     Returns ``(offsets, batch, mask)`` with ``mask`` None for an unmasked
     solve (``maskv`` None or the scalar 1.0).
     """
-    offsets = _validate_apply(band, offsets, b)
+    offsets, _ = _validate_apply(band, offsets, b)
     n = band.shape[1]
     if b.ndim not in (1, 2):
         raise ValueError(f"b must be (N,) or (B, N), got {tuple(b.shape)}")
@@ -289,37 +386,37 @@ def circulant_pcg_plain(band, offsets, b, x0, inv_diag, maskv, iters,
 def circulant_pcg(band, offsets, b, x0, inv_diag, maskv, iters, meanfree):
     """(x, r) after ``iters`` Jacobi-PCG steps.
 
-    CUDA tensors run the whole solve in one cooperative launch of
-    ``circulant_pcg_kernel``; CPU tensors take :func:`circulant_pcg_plain`.
+    CUDA tensors run the whole solve in one launch of the kernel that
+    :func:`pcg_plan` picks; CPU tensors take :func:`circulant_pcg_plain`.
     """
     if not b.is_cuda:
         return circulant_pcg_plain(band, offsets, b, x0, inv_diag, maskv,
                                    iters, meanfree)
     offsets, batch, mask = _validate_pcg(band, offsets, b, x0, inv_diag,
                                          maskv, iters, meanfree)
-    lib = load_library()
-    sfx = _suffix(b.dtype)
-    n = band.shape[1]
-    total = b.numel()
-    with torch.cuda.device(b.device):
-        grid = ctypes.c_int(0)
-        _check(lib, getattr(lib, f"ns_circulant_pcg_grid_{sfx}")(
-            total, ctypes.byref(grid)), "circulant_pcg occupancy query")
+    _, offs_c = _check_offsets(offsets, band.shape[1])
+    n, dtype, dev = band.shape[1], b.dtype, b.device
+    _check_index_range(len(offsets), n, batch)
+    masked = mask is not None
+    plan = _prepared(pcg_plan(n, len(offsets), batch, dtype, masked), dtype,
+                     dev, masked)
+    with _on(dev):
+        stream = _stream(dev)
+        scratch = None
+        if plan.route == "grid":
+            scratch = _grid_scratch(plan, n, batch, dtype, dev,
+                                    stream).data_ptr()
         x = torch.empty_like(b)
         r = torch.empty_like(b)
-        work = torch.empty((2,) + tuple(b.shape), dtype=b.dtype,
-                           device=b.device)           # p, Ap
-        partial = torch.empty(3 * grid.value, dtype=b.dtype, device=b.device)
-        offs = _device_offsets(offsets, b.device)
-        err = getattr(lib, f"ns_circulant_pcg_{sfx}")(
-            band.data_ptr(), offs.data_ptr(), len(offsets), n, batch,
-            b.data_ptr(), x0.data_ptr(), inv_diag.data_ptr(),
+        err = _kernel_fn("circulant_pcg", dtype)(
+            _ROUTE_CODE[plan.route], plan.ctas, plan.rows, plan.smem_bytes,
+            int(plan.resident), band.data_ptr(), offs_c, len(offsets), n,
+            batch, b.data_ptr(), x0.data_ptr(), inv_diag.data_ptr(),
             0 if inv_diag.ndim == 1 else n,
             None if mask is None else mask.data_ptr(),
             0 if mask is None or mask.ndim == 1 else n,
             int(iters), int(bool(meanfree)), x.data_ptr(), r.data_ptr(),
-            work[0].data_ptr(), work[1].data_ptr(), partial.data_ptr(),
-            grid.value, _stream(b.device))
-    _check(lib, err, "circulant_pcg")
+            scratch, stream)
+    _check(err, f"circulant_pcg ({plan.route} route)")
     LAUNCHES["circulant_pcg"] += 1
     return x, r

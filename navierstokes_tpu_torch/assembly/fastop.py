@@ -510,7 +510,8 @@ class FastTaylorHood:
     Works in lexicographic node numberings (``permU``, ``permP``) and the
     planar velocity layout ``(dim, n_unodes)``.  Use ``permute_*`` /
     ``unpermute_*`` at solver boundaries; keep state permuted across
-    steps.  Device tensors are made on ``device`` in ``dtype`` (default:
+    steps.  Device tensors are made on ``device`` (default: the card; the
+    CPU only with ``device="cpu"``) in ``dtype`` (default:
     ``config.default_dtype(device)``).
 
     Only 2D periodic structured meshes are ported so far (circulant bands,
@@ -522,7 +523,7 @@ class FastTaylorHood:
             raise NotImplementedError("3D is not ported yet")
         self.space = space
         self.dim = space.dim
-        self.device = device = config.resolve_device(device)
+        self.device = device = config.require_device(device)
         self.dtype = dt = config.resolve_dtype(dtype, device)
 
         cu = np.asarray(space.cell_unodes)
@@ -674,8 +675,9 @@ def planar_ops_to_numpy(fast) -> dict:
 
 
 def planar_ops_from_numpy(d: dict, device=None, dtype=None) -> PlanarOps:
-    """The port's PlanarOps from :func:`planar_ops_to_numpy`'s dict."""
-    device = config.resolve_device(device)
+    """The port's PlanarOps from :func:`planar_ops_to_numpy`'s dict, on
+    ``device`` (default: the card; the CPU only with ``device="cpu"``)."""
+    device = config.require_device(device)
     dtype = config.resolve_dtype(dtype, device)
 
     def band(e):

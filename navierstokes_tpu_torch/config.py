@@ -4,6 +4,8 @@
   JAX package (run with x64 in its tests) at roundoff.
 * On CUDA the caller picks float32 or float64; the H100 has hardware f64.
   ``NS_TPU_X64=1`` makes float64 the CUDA default as well.
+* Entry points run on the card unless the caller passes ``device="cpu"``;
+  with no CUDA device they raise instead of falling back to the CPU.
 
 Importing this module turns TF32 off for matmuls and cuDNN: the convection
 quadrature is a chain of einsum contractions, and TF32 keeps about three
@@ -23,8 +25,19 @@ FLOAT_DTYPES = (torch.float32, torch.float64)
 
 
 def resolve_device(device=None) -> torch.device:
-    """``torch.device`` of ``device`` (``None`` means the CPU)."""
-    return torch.device("cpu" if device is None else device)
+    """``torch.device`` of ``device`` (``None`` means the card, ``cuda``)."""
+    return torch.device("cuda" if device is None else device)
+
+
+def require_device(device=None) -> torch.device:
+    """:func:`resolve_device`, raising ``RuntimeError`` for a CUDA device
+    when no card is present (the CPU is used only when asked for)."""
+    dev = resolve_device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {dev} requested (the default) but torch.cuda."
+            "is_available() is False; pass device='cpu' to run on the CPU")
+    return dev
 
 
 def default_dtype(device=None) -> torch.dtype:

@@ -31,7 +31,7 @@ def engines(request):
         mesh, periodic=[jax_axis_periodic(0), jax_axis_periodic(1)]))
     mesh, _ = hyper_cube(2, n)
     tf = tfo.FastTaylorHood(TaylorHoodSpace(
-        mesh, periodic=[axis_periodic(0), axis_periodic(1)]))
+        mesh, periodic=[axis_periodic(0), axis_periodic(1)]), device="cpu")
     return jf, tf
 
 
@@ -99,7 +99,7 @@ def test_applies_match(engines):
 def test_planar_ops_round_trip(engines):
     jf, _ = engines
     d = tfo.planar_ops_to_numpy(jf)
-    ops = tfo.planar_ops_from_numpy(d)
+    ops = tfo.planar_ops_from_numpy(d, device="cpu")
     assert ops.diag_m.dtype == torch.float64
     assert ops.conv_strided == tfo.StridedConv(
         grid=tuple(jf.conv_strided.grid), offs=jf.conv_strided.offs)
@@ -118,6 +118,6 @@ def test_meshes_not_ported_yet_raise():
     later slice: both refuse instead of building something else."""
     mesh, _ = hyper_rectangle((0.0, 0.0), (2.0, 1.0), (12, 6))
     with pytest.raises(NotImplementedError):
-        tfo.FastTaylorHood(TaylorHoodSpace(mesh))
+        tfo.FastTaylorHood(TaylorHoodSpace(mesh), device="cpu")
     with pytest.raises(NotImplementedError, match="3D"):
         hyper_cube(3, 2)

@@ -42,7 +42,7 @@ def _run(n, case):
 
     space, u0, p0 = _taylor_green_setup(n)
     jf = JaxFast(space)
-    ops = planar_ops_from_numpy(planar_ops_to_numpy(jf))
+    ops = planar_ops_from_numpy(planar_ops_to_numpy(jf), device="cpu")
     kw = dict(visc=0.01, dt=1e-3, cg_iters=(8, 20, 6), with_residuals=True)
     kw_j, kw_t, call_j, call_t = {}, {}, {}, {}
     rng = np.random.default_rng(4)
@@ -113,5 +113,6 @@ def test_amg_poisson_is_not_ported():
 
     space, _, _ = taylor_green_setup(8)
     with pytest.raises(NotImplementedError, match="amg"):
-        build_planar_projection_step(FastTaylorHood(space), visc=0.01,
-                                     dt=1e-3, poisson_precond="amg")
+        build_planar_projection_step(FastTaylorHood(space, device="cpu"),
+                                     visc=0.01, dt=1e-3,
+                                     poisson_precond="amg")
