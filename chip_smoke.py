@@ -31,12 +31,31 @@ non-zero):
 6. parity   -- 10 steps at 128^2, f64, on the card (kernels) and on the CPU
                (plain versions) from the same state; u and p must agree to
                1e-9 relative.
-7. the ``kernels`` line, then the card's nvidia-smi line, then the last
+7. structured2d -- the structured spectral projection step (bench.py's
+               primary path, one eager launch sequence per step) on the
+               Taylor-Green vortex at 128^2, f32, Re = 100, dt = 1e-3: one
+               BDF-1 and 3 BDF-2 warm-up steps, then 200 timed BDF-2
+               steps.  Requires finite values and amp_rel_err < 0.05;
+               prints DoF-steps/s, the host setup seconds and the peak
+               device memory.
+8. structured3d -- the same step on the triply periodic shear wave at
+               48^3 (2.76 M DoFs), f32: 4 warm-up and 50 timed steps.
+9. structured_timing -- at both shapes, CUDA-event medians of one
+               convection call, fwd_u / inv_u (MatmulDFT) beside
+               torch.fft.fftn / ifftn over the same axes of the same class
+               grids, one _cmatmul in each lowering (vpu, einsum) and one
+               helmholtz_solve; and the device-busy share of 10 steps
+               (torch.profiler kernel time over wall time) with the top
+               kernels by device time.
+10. structured_parity -- 10 spectral steps at f64 on the card and on the
+               CPU from the same state, at 128^2 and 16^3; u and p must
+               agree to 1e-9 relative.
+11. the ``kernels`` line, then the card's nvidia-smi line, then the last
    line ``{"ok": true, "device": {...}}``.
 
-``--profile DIR`` also writes a torch.profiler table of 10 main-path steps
-to DIR.  ``--baseline DIR`` also times the kernels of another checkout of
-this repository (its ``navierstokes_tpu_torch``, built from its own
+``--profile DIR`` also writes a torch.profiler table of 10 steps of each
+path (banded, structured 2D, structured 3D) to DIR.  ``--baseline DIR``
+also times the kernels of another checkout of this repository (its ``navierstokes_tpu_torch``, built from its own
 source) on the same inputs in the same process, in the order baseline,
 this, this, baseline.
 """
@@ -61,6 +80,10 @@ from navierstokes_tpu_torch.assembly.fastop import (FastTaylorHood,
 from navierstokes_tpu_torch.setups import taylor_green_setup
 from navierstokes_tpu_torch.solvers.planar_step import \
     build_planar_projection_step
+from navierstokes_tpu_torch.structured import (PeriodicStructuredTH,
+                                               StructuredConvection,
+                                               build_spectral_projection_step)
+from navierstokes_tpu_torch.structured.spectral import _cmatmul
 
 RE = 100.0
 DT = 1.0e-3
@@ -73,6 +96,15 @@ ALPHAS = ((1.0, -1.0, 0.0), (1.5, -2.0, 0.5))
 ETAS = ((1.0, 0.0), (2.0, -1.0))
 RUNS = 30
 PROFILE_LAUNCHES = 20
+# the structured spectral path: bench.py's sizes (NS_BENCH_DIM=2 / 3), the
+# decay-rate factor of the analytic solution, and the parity grid sizes
+STRUCTURED = {
+    "structured2d": {"dim": 2, "n": 128, "steps": 200, "rate": 2.0,
+                     "n_parity": 128},
+    "structured3d": {"dim": 3, "n": 48, "steps": 50, "rate": 1.0,
+                     "n_parity": 16},
+}
+N_BUSY = 10
 DEVICE = "cuda:0"
 # NVIDIA H100 SXM data sheet: HBM3 bandwidth, and the peak rates outside
 # the tensor cores
@@ -573,25 +605,31 @@ def phase_main(st, smi, profile_dir):
         if count <= 0:
             raise AssertionError(f"{name} was not launched by the main path")
     if profile_dir:
-        profile_steps(step, state, smi, profile_dir)
+        box = [state]
+
+        def advance():
+            u_new, p_new, phi = step(*box[0], ALPHAS[1], ETAS[1])
+            box[0] = (u_new, box[0][0], p_new, phi)
+
+        write_profile(advance, smi, profile_dir, "profile_main.txt",
+                      f"taylor-green {N_POINTS}^2 f32, banded step")
     return launches
 
 
-def profile_steps(step, state, smi, profile_dir):
-    """torch.profiler table of 10 more main-path steps."""
+def write_profile(advance, smi, profile_dir, filename, title):
+    """torch.profiler table of N_BUSY calls of ``advance`` (one step each)."""
     from torch.profiler import ProfilerActivity, profile
 
     os.makedirs(profile_dir, exist_ok=True)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        for _ in range(10):
-            u_new, p_new, phi = step(*state, ALPHAS[1], ETAS[1])
-            state = (u_new, state[0], p_new, phi)
+        for _ in range(N_BUSY):
+            advance()
         torch.cuda.synchronize()
     table = prof.key_averages().table(sort_by="cuda_time_total",
                                       row_limit=40)
-    with open(os.path.join(profile_dir, "profile_main.txt"), "w") as f:
-        f.write(f"{smi}\n10 steps, taylor-green {N_POINTS}^2 f32\n{table}")
+    with open(os.path.join(profile_dir, filename), "w") as f:
+        f.write(f"{smi}\n{N_BUSY} steps, {title}\n{table}")
 
 
 def phase_parity(st):
@@ -609,10 +647,249 @@ def phase_parity(st):
             raise AssertionError(f"f64 parity {name}: rel err {err} > 1e-9")
 
 
+def spectral_steps(step, state, n):
+    """``n`` spectral steps: BDF-1 first, then BDF-2."""
+    for i in range(n):
+        state = step(state, ALPHAS[min(i, 1)], ETAS[min(i, 1)])
+    return state
+
+
+def vortex3d(space):
+    """A smooth divergence-free 3D velocity with non-zero convection and
+    pressure (the shear wave has neither), flat, for the parity phase."""
+    g = 2.0 * math.pi
+    return space.interpolate_velocity(lambda x: np.stack(
+        [np.sin(g * x[:, 1]) * np.cos(g * x[:, 2]),
+         np.sin(g * x[:, 2]) * np.cos(g * x[:, 0]),
+         np.sin(g * x[:, 0]) * np.cos(g * x[:, 1])], axis=1)).reshape(-1)
+
+
+class StructuredSetup:
+    """One structured configuration: the host setup (timed, NumPy f64) and
+    the user-facing f32 spectral step on the card."""
+
+    def __init__(self, name, dev):
+        self.name, self.dev = name, dev
+        self.cfg = cfg = STRUCTURED[name]
+        t0 = time.perf_counter()
+        self.space, self.u0, self.p0 = taylor_green_setup(cfg["n"],
+                                                          dim=cfg["dim"])
+        t1 = time.perf_counter()
+        self.sgrid = PeriodicStructuredTH(self.space)
+        t2 = time.perf_counter()
+        self.step, self.init_state, self.read_state = \
+            build_spectral_projection_step(self.sgrid, visc=1.0 / RE, dt=DT,
+                                           dtype=torch.float32, device=dev)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        self.setup_seconds = {"mesh_and_space": t1 - t0,
+                              "class_grids": t2 - t1,
+                              "symbols_and_eigenbasis": t3 - t2,
+                              "total": t3 - t0}
+        self.config = (f"{'taylor-green' if cfg['dim'] == 2 else 'shear-wave'}"
+                       f" {cfg['n']}^{cfg['dim']} f32, spectral step")
+        self.state = None
+
+    def advance(self):
+        self.state = self.step(self.state, ALPHAS[1], ETAS[1])
+
+
+def phase_structured(ss, smi, profile_dir):
+    """bench.py's structured path in its per-step dispatch form."""
+    cfg = ss.cfg
+    torch.cuda.reset_peak_memory_stats()
+    flat = ss.u0.reshape(-1)
+    ss.state = spectral_steps(ss.step, ss.init_state(flat, flat, ss.p0),
+                              N_WARMUP)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(cfg["steps"]):
+        ss.advance()
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    u_flat, p_flat = ss.read_state(ss.state)
+    space = ss.space
+    if u_flat.shape != (space.n_velocity_dofs,) or \
+            p_flat.shape != (space.n_pnodes,):
+        raise AssertionError(f"{ss.name}: read_state shapes {u_flat.shape}, "
+                             f"{p_flat.shape}")
+    finite = bool(np.isfinite(u_flat).all() and np.isfinite(p_flat).all())
+    n_total = N_WARMUP + cfg["steps"]
+    expected = math.exp(-cfg["rate"] * (1.0 / RE) * (2.0 * math.pi) ** 2
+                        * n_total * DT)
+    amp_err = abs(float(np.abs(u_flat).max()) - expected) / expected
+    emit({"phase": ss.name, "config": ss.config, "n_dofs": space.n_dofs,
+          "grid": list(ss.sgrid.shape), "steps_timed": cfg["steps"],
+          "seconds": elapsed, "ms_per_step": 1e3 * elapsed / cfg["steps"],
+          "dof_steps_per_s": cfg["steps"] * space.n_dofs / elapsed,
+          "amp_rel_err": amp_err, "finite": finite,
+          "setup_seconds": ss.setup_seconds,
+          "peak_device_bytes": peak, "nvidia_smi": smi})
+    if not finite:
+        raise AssertionError(f"{ss.name} produced non-finite values")
+    if not amp_err < 0.05:
+        raise AssertionError(f"{ss.name}: amp_rel_err {amp_err} >= 0.05")
+    if profile_dir:
+        write_profile(ss.advance, smi, profile_dir,
+                      f"profile_{ss.name}.txt", ss.config)
+
+
+def busy_share(ss):
+    """Device-busy share of N_BUSY steps: torch.profiler kernel time over
+    the host-clock time of the same window, with the top kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    ss.advance()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(N_BUSY):
+            ss.advance()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = []
+    for e in prof.key_averages():
+        t = getattr(e, "self_device_time_total", None) or \
+            getattr(e, "self_cuda_time_total", 0.0)
+        if t > 0.0:
+            rows.append((t, e.count, e.key))
+    device = sum(r[0] for r in rows)
+    if device <= 0.0:
+        raise RuntimeError("torch.profiler recorded no kernel time")
+    rows.sort(reverse=True)
+    return {"steps": N_BUSY, "wall_ms_per_step": 1e3 * wall / N_BUSY,
+            "device_ms_per_step": device / N_BUSY / 1e3,
+            "busy_share": device / 1e6 / wall,
+            "launches_per_step": sum(r[1] for r in rows) / N_BUSY,
+            "top_kernels": [{"kernel": key[:72],
+                             "ms_per_step": t / N_BUSY / 1e3,
+                             "calls_per_step": count / N_BUSY}
+                            for t, count, key in rows[:8]]}
+
+
+def step_ms_per_lowering(ss, n_steps):
+    """Host-clock ms per step with NS_TPU_BLOCK_APPLY forced to each
+    _cmatmul lowering, in the order vpu, einsum, einsum, vpu."""
+    out = {"vpu": [], "einsum": []}
+    saved = os.environ.get("NS_TPU_BLOCK_APPLY")
+    try:
+        for mode in ("vpu", "einsum", "einsum", "vpu"):
+            os.environ["NS_TPU_BLOCK_APPLY"] = mode
+            ss.advance()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(n_steps):
+                ss.advance()
+            torch.cuda.synchronize()
+            out[mode].append(1e3 * (time.perf_counter() - t0) / n_steps)
+    finally:
+        if saved is None:
+            os.environ.pop("NS_TPU_BLOCK_APPLY", None)
+        else:
+            os.environ["NS_TPU_BLOCK_APPLY"] = saved
+    return out
+
+
+def phase_structured_timing(setups, smi):
+    """Per-call times of the structured step's parts at both shapes, the
+    library FFT beside MatmulDFT, both _cmatmul lowerings, and the
+    device-busy share of the step."""
+    report = {}
+    for ss in setups:
+        ops, dim = ss.step.ops, ss.cfg["dim"]
+        conv = StructuredConvection(ss.sgrid, dtype=torch.float32,
+                                    device=ss.dev)
+        U, Uh = ss.state[0], ss.state[2]
+        axes = tuple(range(1, 1 + dim))
+        mine, Z = ops.dft.fwd(U), torch.fft.fftn(U, dim=axes)
+        fft_err = float((torch.complex(mine.re, mine.im) - Z).abs().max()
+                        / Z.abs().max())
+        if not fft_err <= 1e-4:
+            raise AssertionError(f"{ss.name}: MatmulDFT vs torch.fft.fftn "
+                                 f"rel err {fft_err} > 1e-4")
+        back = ops.dft.inv_real(mine)
+        ifft_err = max(rel_err(back, torch.fft.ifftn(Z, dim=axes).real),
+                       rel_err(back, U))
+        if not ifft_err <= 1e-4:
+            raise AssertionError(f"{ss.name}: inverse DFT rel err "
+                                 f"{ifft_err} > 1e-4")
+        lowered = {m: _cmatmul(ops.Mhat, Uh, mode=m)
+                   for m in ("vpu", "einsum")}
+        low_err = max(rel_err(lowered["vpu"].re, lowered["einsum"].re),
+                      rel_err(lowered["vpu"].im, lowered["einsum"].im))
+        if not low_err <= 1e-5:
+            raise AssertionError(f"{ss.name}: _cmatmul lowerings differ by "
+                                 f"{low_err} > 1e-5")
+        a0k = ALPHAS[1][0] / DT
+        report[ss.name] = {
+            "config": ss.config,
+            "ms": {
+                "convection": time_ms(lambda: conv(U)),
+                "fwd_u_matmul_dft": time_ms(lambda: ops.fwd_u(U)),
+                "inv_u_matmul_dft": time_ms(lambda: ops.inv_u(Uh)),
+                "torch_fft_fftn": time_ms(
+                    lambda: torch.fft.fftn(U, dim=axes)),
+                "torch_fft_ifftn_real": time_ms(
+                    lambda: torch.fft.ifftn(Z, dim=axes).real),
+                "cmatmul_vpu": time_ms(
+                    lambda: _cmatmul(ops.Mhat, Uh, mode="vpu")),
+                "cmatmul_einsum": time_ms(
+                    lambda: _cmatmul(ops.Mhat, Uh, mode="einsum")),
+                "helmholtz_solve": time_ms(
+                    lambda: ops.helmholtz_solve(a0k, 1.0 / RE, Uh))},
+            "rel_err": {"matmul_dft_vs_fftn": fft_err,
+                        "inverse_dft": ifft_err,
+                        "cmatmul_vpu_vs_einsum": low_err},
+            "step_ms_by_block_apply": step_ms_per_lowering(
+                ss, max(N_BUSY, ss.cfg["steps"] // 4)),
+            "busy": busy_share(ss)}
+    emit({"phase": "structured_timing", "unit": "ms", "nvidia_smi": smi,
+          "ms": "median of CUDA-event times of one call",
+          "library": "torch.fft.fftn / ifftn over the grid axes of the "
+                     "(2^dim, *grid, d) class grids",
+          "shapes": report})
+    return report
+
+
+def phase_structured_parity(setups):
+    """f64 spectral steps on the card against the CPU from the same
+    state."""
+    for ss in setups:
+        cfg = ss.cfg
+        n, dim = cfg["n_parity"], cfg["dim"]
+        if n == cfg["n"]:
+            space, sgrid, u0, p0 = ss.space, ss.sgrid, ss.u0, ss.p0
+        else:
+            space, u0, p0 = taylor_green_setup(n, dim=dim)
+            sgrid = PeriodicStructuredTH(space)
+        flat = vortex3d(space) if dim == 3 else u0.reshape(-1)
+        out, seconds = {}, {}
+        for where in (ss.dev, "cpu"):
+            t0 = time.perf_counter()
+            step, init_state, read_state = build_spectral_projection_step(
+                sgrid, visc=1.0 / RE, dt=DT, dtype=torch.float64,
+                device=where)
+            state = spectral_steps(step, init_state(flat, flat, p0),
+                                   N_PARITY)
+            out[where] = [torch.from_numpy(a) for a in read_state(state)]
+            seconds[str(where)] = time.perf_counter() - t0
+        errs = {"u": rel_err(out[ss.dev][0], out["cpu"][0]),
+                "p": rel_err(out[ss.dev][1], out["cpu"][1])}
+        emit({"phase": "structured_parity", "config": f"{n}^{dim}",
+              "steps": N_PARITY, "dtype": "float64", "rel_err": errs,
+              "seconds": seconds})
+        for name, err in errs.items():
+            if not err <= 1e-9:
+                raise AssertionError(f"structured f64 parity {n}^{dim} "
+                                     f"{name}: rel err {err} > 1e-9")
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", default=None, metavar="DIR",
-                    help="write a torch.profiler table of 10 steps here")
+                    help="write a torch.profiler table of 10 steps of "
+                         "each path here")
     ap.add_argument("--baseline", default=None, metavar="DIR",
                     help="also time the kernels of the checkout in DIR")
     args = ap.parse_args()
@@ -629,6 +906,12 @@ def main():
     if args.baseline:
         phase_baseline(st, subs32, smi, args.baseline)
     phase_parity(st)
+    setups = []
+    for name in STRUCTURED:
+        setups.append(StructuredSetup(name, st.dev))
+        phase_structured(setups[-1], smi, args.profile)
+    phase_structured_timing(setups, smi)
+    phase_structured_parity(setups)
 
     src = "navierstokes_tpu_torch/csrc/band.cu"
     keys = ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by",

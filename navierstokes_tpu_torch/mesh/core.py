@@ -4,8 +4,9 @@ Host-side NumPy, built once.  Conventions as in the JAX package: cells are
 positively oriented, local facet ``i`` is opposite local vertex ``i``, and
 facet markers live in a :class:`FacetMarkers` companion object.
 
-Row deduplication uses NumPy's ``unique`` (the NumPy branch of the JAX
-package's ``native.unique_rows``); the g++ helper is not ported.
+Row deduplication is NumPy's ``unique`` on packed row keys (the results
+of the NumPy branch of the JAX package's ``native.unique_rows``); the g++
+helper is not ported.
 """
 
 from __future__ import annotations
@@ -37,10 +38,30 @@ def _edge_local_indices(n_cell_vertices: int) -> np.ndarray:
 
 
 def unique_rows(rows: np.ndarray):
-    """``(unique, inverse, counts)`` of the rows of an (n, w) int array."""
+    """``(unique, inverse, counts)`` of the rows of an (n, w) int array,
+    the unique rows in lexicographic order.
+
+    Rows of non-negative entries whose width fits are packed into one
+    int64 key each (the order of the keys is the lexicographic order of
+    the rows), which sorts several times faster than ``np.unique`` over
+    rows and gives the same three arrays."""
     rows = np.ascontiguousarray(rows, dtype=np.int32)
-    uniq, inverse, counts = np.unique(rows, axis=0, return_inverse=True,
+    n, w = rows.shape
+    base = int(rows.max()) + 1 if n else 1
+    if n == 0 or int(rows.min()) < 0 or base ** w >= 2 ** 62:
+        uniq, inverse, counts = np.unique(rows, axis=0, return_inverse=True,
+                                          return_counts=True)
+        return (uniq, inverse.reshape(-1).astype(np.int64),
+                counts.astype(np.int64))
+    key = rows[:, 0].astype(np.int64)
+    for j in range(1, w):
+        key = key * base + rows[:, j]
+    ukey, inverse, counts = np.unique(key, return_inverse=True,
                                       return_counts=True)
+    uniq = np.empty((len(ukey), w), dtype=np.int32)
+    for j in range(w - 1, -1, -1):
+        uniq[:, j] = ukey % base
+        ukey = ukey // base
     return uniq, inverse.reshape(-1).astype(np.int64), counts.astype(np.int64)
 
 

@@ -114,10 +114,12 @@ def test_planar_ops_round_trip(engines):
 
 
 def test_meshes_not_ported_yet_raise():
-    """Non-periodic meshes need AffineBand / the rim formats, and 3D is a
-    later slice: both refuse instead of building something else."""
+    """Non-periodic meshes need AffineBand / the rim formats, and the 3D
+    engine is a later slice: both refuse instead of building something
+    else."""
     mesh, _ = hyper_rectangle((0.0, 0.0), (2.0, 1.0), (12, 6))
     with pytest.raises(NotImplementedError):
         tfo.FastTaylorHood(TaylorHoodSpace(mesh), device="cpu")
+    mesh, _ = hyper_cube(3, 2)
     with pytest.raises(NotImplementedError, match="3D"):
-        hyper_cube(3, 2)
+        tfo.FastTaylorHood(TaylorHoodSpace(mesh), device="cpu")
