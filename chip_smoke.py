@@ -1,6 +1,6 @@
 """Drive the PyTorch/CUDA port on one card and check it.
 
-    python3 chip_smoke.py [--profile DIR] [--baseline DIR]
+    python3 chip_smoke.py [--profile DIR] [--baseline DIR] [--phases LIST]
 
 Phases, each printing one JSON line (any failure raises and exits
 non-zero):
@@ -50,11 +50,49 @@ non-zero):
 10. structured_parity -- 10 spectral steps at f64 on the card and on the
                CPU from the same state, at 128^2 and 16^3; u and p must
                agree to 1e-9 relative.
-11. the ``kernels`` line, then the card's nvidia-smi line, then the last
+11. solver_cavity -- the product solver API at full width: the lid-driven
+               cavity at 128^2 (148,739 DoFs, no-slip walls, unit lid,
+               zero-mean pressure), Re = 1000, dt = 0.25 / 256, f32,
+               through ``ProjectionSolver`` + ``BDFTimeStepping`` and the
+               manual loop, with the solver's defaults (AMG Poisson
+               preconditioner, cg_iters (40, 40, 20)) and cg_rtol = 1e-6
+               (the default 1e-8 is below f32 roundoff): 4 warm-up and 200
+               timed steps.  Requires step_kind "fast", finite state and
+               residuals, lid nodes at 1 and wall nodes at 0 to 1e-6;
+               prints every operator's format, ms/step, DoF-steps/s,
+               launches and host syncs per step, the device-busy share,
+               the last residual triple, ||div u||, the centre-line
+               minimum of u_x and the setup seconds by stage.
+12. solver_cavity_kernels -- the same cavity with cg_rtol = None,
+               poisson_precond = None, cg_iters = (18, 300, 10): all three
+               solves of a step are one circulant_pcg launch each, the
+               velocity solves masked (B = 2, N = 66,049, K = 19), the
+               Poisson solve mean-free (N = 16,641, K = 7).  50 timed
+               steps; one step's three solves are held against their plain
+               versions (rel. error < 1e-5, |d||r||| <= 1e-4 ||r|| + 1e-6)
+               and timed, with each solve's route.
+13. solver_periodic -- Taylor-Green 128^2 through the solver API, default
+               (step_kind "spectral") and with prefer_spectral=False
+               ("fast": stencil couplings, strided convection), 100 steps
+               each, amp_rel_err < 0.05, ms/step beside the raw-step
+               figures of phases main and structured2d.
+14. solver_parity -- f64, card against CPU, 10 steps: cavity 32^2 with the
+               defaults (AffineBand couplings) and again with
+               NS_FASTOP_RIM_BYTES forcing GatherOp couplings, and the
+               channel 20x4 with a time-dependent inflow; u and p must
+               agree to 1e-9 relative; a second card run must repeat the
+               first (no atomics on the path).  Then a checkpoint round
+               trip on the card: save after 3 variable steps, load into a
+               fresh solver, 3 more steps equal the unbroken run bit for
+               bit.
+15. the ``kernels`` line, then the card's nvidia-smi line, then the last
    line ``{"ok": true, "device": {...}}``.
 
 ``--profile DIR`` also writes a torch.profiler table of 10 steps of each
-path (banded, structured 2D, structured 3D) to DIR.  ``--baseline DIR``
+path (banded, structured 2D, structured 3D, solver cavity) to DIR.
+``--phases LIST`` runs only the named groups (``kernels``, ``structured``,
+``solver``; the device and build phases always run) and then prints no
+``kernels`` line.  ``--baseline DIR``
 also times the kernels of another checkout of this repository (its ``navierstokes_tpu_torch``, built from its own
 source) on the same inputs in the same process, in the order baseline,
 this, this, baseline.
@@ -67,6 +105,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -77,13 +116,22 @@ from navierstokes_tpu_torch.assembly.fastop import (FastTaylorHood,
                                                     combine_circulant,
                                                     planar_ops_from_numpy,
                                                     planar_ops_to_numpy)
-from navierstokes_tpu_torch.setups import taylor_green_setup
+from navierstokes_tpu_torch.fem.bcs import PressureBCType
+from navierstokes_tpu_torch.fem.spaces import axis_periodic
+from navierstokes_tpu_torch.io import load_checkpoint, save_checkpoint
+from navierstokes_tpu_torch.mesh import hyper_cube
+from navierstokes_tpu_torch.setups import (channel_setup,
+                                           lid_driven_cavity_setup,
+                                           parabolic_inlet,
+                                           taylor_green_setup)
+from navierstokes_tpu_torch.solvers import ProjectionSolver
 from navierstokes_tpu_torch.solvers.planar_step import \
     build_planar_projection_step
 from navierstokes_tpu_torch.structured import (PeriodicStructuredTH,
                                                StructuredConvection,
                                                build_spectral_projection_step)
 from navierstokes_tpu_torch.structured.spectral import _cmatmul
+from navierstokes_tpu_torch.timestepping import BDFTimeStepping
 
 RE = 100.0
 DT = 1.0e-3
@@ -105,6 +153,11 @@ STRUCTURED = {
                      "n_parity": 16},
 }
 N_BUSY = 10
+# the solver-API phases: the cavity of benchmarks/cavity_re1000.py (its
+# Re, step size and fixed-iteration counts) and the parity grids
+SOLVER = {"n": 128, "re": 1000.0, "steps": 200, "cg_rtol": 1e-6,
+          "kernel_steps": 50, "kernel_cg_iters": (18, 300, 10),
+          "periodic_steps": 100, "n_parity": 32, "channel": (20, 4)}
 DEVICE = "cuda:0"
 # NVIDIA H100 SXM data sheet: HBM3 bandwidth, and the peak rates outside
 # the tensor cores
@@ -156,7 +209,10 @@ def torus_offsets(n, W):
 
 def device_ms(fn):
     """Device-only time of ``fn`` in ms: the band kernels' time in a
-    torch.profiler trace of PROFILE_LAUNCHES calls, over the count."""
+    torch.profiler trace of PROFILE_LAUNCHES calls, over the number of
+    kernel records in the trace (one per call; a long process can lose
+    records, so the trace's own count is the divisor, and a trace with
+    fewer than half of the launches is refused)."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(3):
@@ -166,14 +222,16 @@ def device_ms(fn):
         for _ in range(PROFILE_LAUNCHES):
             fn()
         torch.cuda.synchronize()
-    total = 0.0
+    total, records = 0.0, 0
     for e in prof.key_averages():
         if "circulant_" in e.key:
             total += getattr(e, "self_device_time_total", None) or \
                 getattr(e, "self_cuda_time_total", 0.0)
-    if total <= 0.0:
-        raise RuntimeError("torch.profiler recorded no kernel time")
-    return total / PROFILE_LAUNCHES / 1e3
+            records += e.count
+    if total <= 0.0 or 2 * records < PROFILE_LAUNCHES:
+        raise RuntimeError(f"torch.profiler recorded {records} of "
+                           f"{PROFILE_LAUNCHES} kernel launches")
+    return total / records / 1e3
 
 
 def bound(bytes_moved, flops, dtype):
@@ -264,8 +322,9 @@ def streamed_case(dtype, dev, n=1 << 20, W=1024, batch=2, iters=10):
             t(np.zeros((batch, n))), t(1.0 / band[d]), 1.0, iters, False)
 
 
-def record_subsolves(step, state):
-    """Arguments of the three circulant_pcg calls of one step."""
+def record_subsolves(run):
+    """Arguments of the three circulant_pcg calls of one step, which
+    ``run()`` takes."""
     calls = []
     launch = cuda_band.circulant_pcg
 
@@ -276,7 +335,7 @@ def record_subsolves(step, state):
 
     cuda_band.circulant_pcg = recorder
     try:
-        step(*state, ALPHAS[1], ETAS[1])
+        run()
     finally:
         cuda_band.circulant_pcg = launch
     if len(calls) != 3:
@@ -428,8 +487,9 @@ def phase_pcg(st):
     for dtype, ops in ((torch.float32, st.fast32.ops),
                        (torch.float64, st.ops64)):
         u, p = st.initial(dtype, st.dev)
-        subs[dtype] = record_subsolves(step_for(ops),
-                                       (u, u, p, torch.zeros_like(p)))
+        step = step_for(ops)
+        subs[dtype] = record_subsolves(
+            lambda: step(u, u, p, torch.zeros_like(p), ALPHAS[1], ETAS[1]))
         cases += [(f"{k}_{N_POINTS}", v, dtype)
                   for k, v in subs[dtype].items()]
     report, err_main, seen = [], 0.0, set()
@@ -569,7 +629,8 @@ def phase_baseline(st, subs32, smi, baseline_dir):
 
 
 def phase_main(st, smi, profile_dir):
-    """The main path; returns the launch counts of its run."""
+    """The main path; returns the launch counts of its run and its ms per
+    step."""
     step = step_for(st.fast32.ops)
     u, p = st.initial(torch.float32, st.dev)
     cuda_band.reset_launch_counts()
@@ -613,7 +674,7 @@ def phase_main(st, smi, profile_dir):
 
         write_profile(advance, smi, profile_dir, "profile_main.txt",
                       f"taylor-green {N_POINTS}^2 f32, banded step")
-    return launches
+    return launches, 1e3 * elapsed / N_STEPS
 
 
 def write_profile(advance, smi, profile_dir, filename, title):
@@ -695,7 +756,8 @@ class StructuredSetup:
 
 
 def phase_structured(ss, smi, profile_dir):
-    """bench.py's structured path in its per-step dispatch form."""
+    """bench.py's structured path in its per-step dispatch form; returns
+    its ms per step."""
     cfg = ss.cfg
     torch.cuda.reset_peak_memory_stats()
     flat = ss.u0.reshape(-1)
@@ -733,6 +795,7 @@ def phase_structured(ss, smi, profile_dir):
     if profile_dir:
         write_profile(ss.advance, smi, profile_dir,
                       f"profile_{ss.name}.txt", ss.config)
+    return 1e3 * elapsed / cfg["steps"]
 
 
 def busy_share(ss):
@@ -885,6 +948,436 @@ def phase_structured_parity(setups):
                                      f"{name}: rel err {err} > 1e-9")
 
 
+# ---------------------------------------------------------------------------
+# the product solver API
+# ---------------------------------------------------------------------------
+
+def pulsed_inlet(x, t=0.0):
+    t = 0.0 if t is None else t
+    return math.sin(math.pi * t) * parabolic_inlet(x)
+
+
+def make_solver(problem, n, device, dtype, **kw):
+    """``(solver, ts)`` for ``problem`` through the documented hooks: the
+    lid-driven ``cavity`` at Re = SOLVER["re"] with n^2 cells, the
+    ``channel`` of n = (nx, ny) cells with a pulsed parabolic inflow, or
+    the ``periodic`` Taylor-Green vortex at Re = RE with n^2 cells."""
+    if problem == "cavity":
+        mesh, markers, bcs = lid_driven_cavity_setup(n)
+        dt, visc, ic = 0.25 / (2.0 * n), 1.0 / SOLVER["re"], \
+            {"velocity": (0.0, 0.0)}
+    elif problem == "channel":
+        mesh, markers, bcs = channel_setup(*n, inlet=pulsed_inlet)
+        dt, visc, ic = 0.02, 0.1, {"velocity": (0.0, 0.0)}
+    else:
+        g = 2.0 * math.pi
+        mesh, markers = hyper_cube(2, n)
+        bcs = ((PressureBCType.mean_value, None, 0.0),)
+        dt, visc = DT, 1.0 / RE
+        ic = {"velocity": lambda x: np.stack(
+                  [np.cos(g * x[:, 0]) * np.sin(g * x[:, 1]),
+                   -np.sin(g * x[:, 0]) * np.cos(g * x[:, 1])], axis=1),
+              "pressure": lambda x: -0.25 * (np.cos(2 * g * x[:, 0])
+                                             + np.cos(2 * g * x[:, 1]))}
+    ts = BDFTimeStepping(0.0, 1.0e6, desired_start_time_step=dt)
+    solver = ProjectionSolver(mesh, markers, "standard", ts, device=device,
+                              dtype=dtype, **kw)
+    if problem == "periodic":
+        solver.set_periodic_boundary_conditions(
+            [axis_periodic(0), axis_periodic(1)],
+            constrained_boundary_ids=(1, 2, 3, 4))
+    solver.set_boundary_conditions(bcs)
+    solver.set_equation_coefficients(
+        {"convective_term": 1.0, "viscous_term": visc,
+         "pressure_term": 1.0})
+    solver.set_initial_conditions(ic)
+    return solver, ts
+
+
+def advance(solver, ts, n=1, dts=None):
+    """``n`` steps of the manual loop (variable sizes ``dts`` if given)."""
+    for i in range(n):
+        if dts is not None:
+            ts.set_desired_next_step_size(dts[i])
+        ts.update_coefficients()
+        solver.solve()
+        ts.advance_time()
+        solver.advance_time()
+
+
+def describe_op(op):
+    """Format, size and bytes of one engine operator."""
+    name = type(op).__name__
+    if name == "CirculantBand":
+        return {"format": name, "K": len(op.offsets), "n": op.n,
+                "bytes": op.nbytes}
+    if name == "AffineBand":
+        return {"format": name, "W": op.W, "blocks": op.nblk,
+                "bytes": op.nbytes}
+    if name == "GatherOp":
+        return {"format": name, "nnz": int(op.vals.numel()),
+                "bytes": op.nbytes}
+    return {"format": name, "taps": len(op.offs)}
+
+
+def engine_formats(fast):
+    out = {k: describe_op(getattr(fast, k)) for k in ("M", "K", "L", "Mp")}
+    out["G"] = [describe_op(op) for op in fast.G]
+    out["D"] = [describe_op(op) for op in fast.D]
+    out["conv_strided"] = fast.conv_strided is not None
+    return out
+
+
+def setup_seconds(solver):
+    return {r["label"]: r["seconds"] for r in solver.monitor.records
+            if r["kind"] == "timing"}
+
+
+def timed_steps(solver, ts, n_steps):
+    """N_WARMUP steps, then ``n_steps`` on the host clock between two
+    synchronisations, with the launch counts of all of them."""
+    cuda_band.reset_launch_counts()
+    advance(solver, ts, N_WARMUP)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    advance(solver, ts, n_steps)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    return elapsed, dict(cuda_band.LAUNCHES)
+
+
+def solver_busy(solver, ts, ms_per_step):
+    """Kernel launches, host synchronisations and device time per step over
+    N_BUSY profiled steps (torch.profiler, CPU and CUDA activities); the
+    busy share is the device time over ``ms_per_step`` of the unprofiled
+    run."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        advance(solver, ts, N_BUSY)
+        torch.cuda.synchronize()
+    device, launches, counts = 0.0, 0, {}
+    for e in prof.key_averages():
+        # kernel and memcpy rows only: an operator's row repeats the time
+        # of the kernels it launched
+        if e.device_type == DeviceType.CUDA:
+            device += getattr(e, "self_device_time_total", None) or \
+                getattr(e, "self_cuda_time_total", 0.0)
+            launches += e.count
+        if e.key in ("aten::_local_scalar_dense", "cudaStreamSynchronize",
+                     "cudaLaunchKernel", "aten::copy_"):
+            counts[e.key] = e.count / N_BUSY
+    if device <= 0.0:
+        raise RuntimeError("torch.profiler recorded no kernel time")
+    device_ms = device / N_BUSY / 1e3
+    return {"steps": N_BUSY, "device_ms_per_step": device_ms,
+            "busy_share": device_ms / ms_per_step,
+            "device_ops_per_step": launches / N_BUSY,
+            # one aten::_local_scalar_dense is one float()/item() read of
+            # a device scalar: a host synchronisation
+            "host_syncs_per_step": counts.get("aten::_local_scalar_dense",
+                                              0.0),
+            "per_step": counts}
+
+
+def residual_records(solver):
+    """(n_steps, 3) recorded residual triples (reads them off the card)."""
+    return np.array([r["residuals"].double().cpu().numpy()
+                     for r in solver.monitor.records
+                     if r["kind"] == "linear_solve"])
+
+
+def cavity_guards(solver, name):
+    """Finite state, lid nodes at 1 and wall nodes at 0 to 1e-6; returns
+    ||div u|| and the centre-line minimum of u_x with its height."""
+    space = solver.space
+    x = solver.solution
+    if not bool(torch.isfinite(x).all()):
+        raise AssertionError(f"{name}: non-finite state")
+    u, _ = space.split(x)
+    div_l2 = solver.operator.divergence_l2(u)
+    u = u.double().cpu().numpy()
+    c = space.u_coords
+    lid = np.abs(c[:, 1] - 1.0) < 1e-12
+    inner_lid = lid & (c[:, 0] > 1e-12) & (c[:, 0] < 1 - 1e-12)
+    walls = (np.abs(c[:, 1]) < 1e-12) | (np.abs(c[:, 0]) < 1e-12) \
+        | (np.abs(c[:, 0] - 1.0) < 1e-12)
+    lid_err = float(np.abs(u[inner_lid, 0] - 1.0).max())
+    wall_err = float(np.abs(u[walls & ~lid]).max())
+    if not (lid_err <= 1e-6 and wall_err <= 1e-6):
+        raise AssertionError(f"{name}: lid error {lid_err}, wall error "
+                             f"{wall_err} > 1e-6")
+    on_cl = np.abs(c[:, 0] - 0.5) < 1e-9
+    i = int(np.argmin(u[on_cl, 0]))
+    return {"lid_err": lid_err, "wall_err": wall_err, "div_l2": div_l2,
+            "centerline_u_min": float(u[on_cl, 0][i]),
+            "centerline_u_min_y": float(c[on_cl, 1][i])}
+
+
+def phase_solver_cavity(dev, smi, profile_dir):
+    """The solver API's path at full width; returns (ms per step, launches)."""
+    n, n_steps = SOLVER["n"], SOLVER["steps"]
+    t0 = time.perf_counter()
+    solver, ts = make_solver("cavity", n, dev, torch.float32,
+                             cg_rtol=SOLVER["cg_rtol"])
+    t_ic = time.perf_counter() - t0
+    elapsed, launches = timed_steps(solver, ts, n_steps)
+    ms = 1e3 * elapsed / n_steps
+    if solver._step_kind != "fast":
+        raise AssertionError(f"solver_cavity: step_kind "
+                             f"{solver._step_kind!r}, expected 'fast'")
+    res = residual_records(solver)
+    if res.shape != (N_WARMUP + n_steps, 3) or not np.isfinite(res).all():
+        raise AssertionError("solver_cavity: residual records missing or "
+                             "non-finite")
+    guards = cavity_guards(solver, "solver_cavity")
+    busy = solver_busy(solver, ts, ms)
+    space = solver.space
+    emit({"phase": "solver_cavity",
+          "config": f"lid-driven cavity {n}^2 f32, Re {SOLVER['re']:g}, "
+                    f"dt {0.25 / (2.0 * n):g}, amg, cg_iters (40, 40, 20), "
+                    f"cg_rtol {SOLVER['cg_rtol']:g} (1e-8 is below f32 "
+                    "roundoff)",
+          "step_kind": solver._step_kind, "n_dofs": space.n_dofs,
+          "operators": engine_formats(solver._fast),
+          "steps_timed": n_steps, "seconds": elapsed, "ms_per_step": ms,
+          "dof_steps_per_s": n_steps * space.n_dofs / elapsed,
+          "launches_per_step": {k: v / (N_WARMUP + n_steps)
+                                for k, v in launches.items()},
+          "busy": busy, "residuals_last": res[-1].tolist(),
+          "residuals_max": res.max(axis=0).tolist(), "guards": guards,
+          "setup_seconds": dict(setup_seconds(solver),
+                                through_initial_conditions=t_ic),
+          "nvidia_smi": smi})
+    if launches["circulant_apply"] <= 0:
+        raise AssertionError("solver_cavity launched no circulant_apply")
+    if profile_dir:
+        write_profile(lambda: advance(solver, ts), smi, profile_dir,
+                      "profile_solver_cavity.txt",
+                      f"lid-driven cavity {n}^2 f32, solver API")
+    return ms, launches
+
+
+def phase_solver_cavity_kernels(dev, smi):
+    """The cavity with every solve in the whole-solve PCG kernel; returns
+    (launches, times of the three solves at these shapes, max abs error)."""
+    n, n_steps = SOLVER["n"], SOLVER["kernel_steps"]
+    solver, ts = make_solver("cavity", n, dev, torch.float32, cg_rtol=None,
+                             poisson_precond=None,
+                             cg_iters=SOLVER["kernel_cg_iters"])
+    elapsed, launches = timed_steps(solver, ts, n_steps)
+    steps = N_WARMUP + n_steps
+    if launches["circulant_pcg"] != 3 * steps:
+        raise AssertionError(
+            f"solver_cavity_kernels: {launches['circulant_pcg']} "
+            f"circulant_pcg launches in {steps} steps, expected 3 per step")
+    if launches["circulant_apply"] <= 0:
+        raise AssertionError("solver_cavity_kernels launched no "
+                             "circulant_apply")
+    guards = cavity_guards(solver, "solver_cavity_kernels")
+    subs = record_subsolves(lambda: advance(solver, ts))
+    report, err_max = {}, 0.0
+    for name, case in subs.items():
+        x, r = cuda_band.circulant_pcg(*case)
+        x_ref, r_ref = cuda_band.circulant_pcg_plain(*case)
+        torch.cuda.synchronize()
+        err = rel_err(x, x_ref)
+        rn = float(torch.linalg.vector_norm(r.double()))
+        rn_ref = float(torch.linalg.vector_norm(r_ref.double()))
+        band, _, b = case[:3]
+        b_ms, b_by = bound(*pcg_work(case), torch.float32)
+        report[name] = {
+            "route": pcg_route(case), "iters": case[6],
+            "K": band.shape[0], "n": band.shape[1],
+            "planes": b.numel() // band.shape[1],
+            "masked": torch.is_tensor(case[5]), "meanfree": bool(case[7]),
+            "rel_err": err, "res": rn, "res_plain": rn_ref,
+            "ms": time_ms(lambda c=case: cuda_band.circulant_pcg(*c)),
+            "device_ms": device_ms(lambda c=case: cuda_band.circulant_pcg(*c)),
+            "plain_ms": time_ms(lambda c=case: cuda_band.circulant_pcg_plain(
+                *c)),
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+        if not (err < 1e-5 and abs(rn - rn_ref) <= 1e-4 * rn_ref + 1e-6):
+            emit({"phase": "solver_cavity_kernels", "failed": name,
+                  "solves": report})
+            raise AssertionError(
+                f"solver_cavity_kernels {name} ({report[name]['route']}): "
+                f"rel err {err}, |r| {rn} vs {rn_ref}")
+        err_max = max(err_max, abs_err(x, x_ref))
+    # the band matvec at the cavity's shapes (M on both velocity planes, L)
+    fast = solver._fast
+    rng = np.random.default_rng(9)
+    applies = {}
+    for name, op, batch in (("M_b2", fast.M, 2), ("L_b1", fast.L, 1)):
+        x = torch.tensor(rng.standard_normal((batch, op.n)),
+                         dtype=torch.float32, device=dev)
+        call = lambda o=op, v=x: cuda_band.circulant_apply(o.band, o.offsets,
+                                                           v)
+        plain = lambda o=op, v=x: cuda_band.circulant_apply_plain(
+            o.band, o.offsets, v)
+        err = rel_err(call(), plain())
+        if not err <= 1e-6:
+            raise AssertionError(f"circulant_apply {name} at the cavity's "
+                                 f"shape: rel err {err} > 1e-6")
+        b_ms, b_by = bound(*apply_work(len(op.offsets), op.n, batch, 4),
+                           torch.float32)
+        applies[name] = {"K": len(op.offsets), "n": op.n, "rel_err": err,
+                         "ms": time_ms(call), "device_ms": device_ms(call),
+                         "plain_ms": time_ms(plain), "bound_ms": b_ms,
+                         "bound_by": b_by}
+    emit({"phase": "solver_cavity_kernels",
+          "config": f"lid-driven cavity {n}^2 f32, cg_rtol None, no "
+                    f"preconditioner, cg_iters {SOLVER['kernel_cg_iters']}",
+          "step_kind": solver._step_kind, "steps_timed": n_steps,
+          "ms_per_step": 1e3 * elapsed / n_steps,
+          "dof_steps_per_s": n_steps * solver.space.n_dofs / elapsed,
+          "launches_per_step": {k: v / steps for k, v in launches.items()},
+          "guards": guards, "solves": report, "applies": applies,
+          "unit": "ms", "nvidia_smi": smi})
+    return launches, report, err_max
+
+
+def phase_solver_periodic(dev, smi, raw_ms):
+    """Taylor-Green 128^2 through the solver API on both of its paths."""
+    n, n_steps = N_POINTS, SOLVER["periodic_steps"]
+    out, launches = {}, None
+    for want, kw in (("spectral", {}),
+                     ("fast", {"prefer_spectral": False,
+                               "cg_rtol": SOLVER["cg_rtol"]})):
+        t0 = time.perf_counter()
+        solver, ts = make_solver("periodic", n, dev, torch.float32, **kw)
+        t_ic = time.perf_counter() - t0
+        elapsed, counts = timed_steps(solver, ts, n_steps)
+        if solver._step_kind != want:
+            raise AssertionError(f"solver_periodic: step_kind "
+                                 f"{solver._step_kind!r}, expected {want!r}")
+        x = solver.solution
+        u, _ = solver.space.split(x)
+        finite = bool(torch.isfinite(x).all())
+        expected = math.exp(-2.0 * (1.0 / RE) * (2.0 * math.pi) ** 2
+                            * ts.current_time)
+        amp_err = abs(float(u.abs().max()) - expected) / expected
+        out[want] = {"step_kind": solver._step_kind, "steps_timed": n_steps,
+                     "ms_per_step": 1e3 * elapsed / n_steps,
+                     "dof_steps_per_s": n_steps * solver.space.n_dofs
+                     / elapsed,
+                     "amp_rel_err": amp_err, "finite": finite,
+                     "launches_per_step": {k: v / (N_WARMUP + n_steps)
+                                           for k, v in counts.items()},
+                     "setup_seconds": dict(setup_seconds(solver),
+                                           through_initial_conditions=t_ic)}
+        if want == "fast":
+            launches = counts
+            fast = solver._fast
+            out[want]["operators"] = engine_formats(fast)
+            out[want]["residuals_last"] = residual_records(solver)[-1] \
+                .tolist()
+            if fast.conv_strided is None or any(
+                    type(op).__name__ != "StencilCoupling"
+                    for op in fast.G + fast.D):
+                raise AssertionError("solver_periodic: the torus engine did "
+                                     "not take stencil couplings and the "
+                                     "strided convection")
+        if not finite or not amp_err < 0.05:
+            raise AssertionError(f"solver_periodic {want}: finite {finite}, "
+                                 f"amp_rel_err {amp_err}")
+    emit({"phase": "solver_periodic",
+          "config": f"taylor-green {n}^2 f32 through ProjectionSolver; the "
+                    f"banded path with amg and cg_rtol {SOLVER['cg_rtol']:g}",
+          "paths": out, "raw_step_ms": raw_ms, "nvidia_smi": smi})
+    return launches
+
+
+def parity_pair(problem, n, dev, n_steps, dts=None, **kw):
+    """The same f64 run on the card (twice) and on the CPU: the relative
+    differences of u and p, whether the card repeats itself bit for bit,
+    and the card solver."""
+    runs = []
+    for where in (dev, dev, "cpu"):
+        solver, ts = make_solver(problem, n, where, torch.float64, **kw)
+        advance(solver, ts, n_steps, dts)
+        runs.append(solver)
+    a, b, c = (s.space.split(s.solution.cpu()) for s in runs)
+    errs = {"u": rel_err(a[0], c[0]), "p": rel_err(a[1], c[1])}
+    rerun = {"u": rel_err(b[0], a[0]), "p": rel_err(b[1], a[1]),
+             "bitwise": bool(torch.equal(runs[0].solution,
+                                         runs[1].solution))}
+    return errs, rerun, runs[0]
+
+
+def phase_solver_parity(dev):
+    """f64 card against CPU through the solver API, both rim formats, and
+    the checkpoint round trip on the card."""
+    n, n_steps = SOLVER["n_parity"], N_PARITY
+    dts = [0.02, 0.02, 0.03, 0.025, 0.02, 0.02, 0.015, 0.02, 0.03, 0.02]
+    cases = {}
+    saved = os.environ.get("NS_FASTOP_RIM_BYTES")
+    for name, problem, size, rim, kw in (
+            ("cavity_affine", "cavity", n, None, {"cg_rtol": 1e-10}),
+            ("cavity_gather", "cavity", n, "1", {"cg_rtol": 1e-10}),
+            ("channel", "channel", SOLVER["channel"], None,
+             {"cg_rtol": 1e-10, "cg_iters": (60, 600, 30)})):
+        try:
+            if rim is not None:
+                os.environ["NS_FASTOP_RIM_BYTES"] = rim
+            errs, rerun, solver = parity_pair(
+                problem, size, dev, n_steps,
+                dts[:n_steps] if problem == "channel" else None, **kw)
+        finally:
+            if saved is None:
+                os.environ.pop("NS_FASTOP_RIM_BYTES", None)
+            else:
+                os.environ["NS_FASTOP_RIM_BYTES"] = saved
+        formats = sorted({type(op).__name__
+                          for op in solver._fast.G + solver._fast.D})
+        cases[name] = {"rel_err": errs, "rerun_on_card": rerun,
+                       "step_kind": solver._step_kind,
+                       "coupling_formats": formats}
+        want = ["GatherOp"] if rim else ["AffineBand"]
+        if solver._step_kind != "fast" or formats != want:
+            raise AssertionError(f"solver_parity {name}: step_kind "
+                                 f"{solver._step_kind}, couplings {formats}")
+    # checkpoint round trip on the card (the channel, variable steps)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "state.npz")
+        kw = {"cg_rtol": 1e-10, "cg_iters": (60, 600, 30)}
+        a, ats = make_solver("channel", SOLVER["channel"], dev,
+                             torch.float64, **kw)
+        advance(a, ats, 3, dts[:3])
+        save_checkpoint(path, a, ats)
+        b, bts = make_solver("channel", SOLVER["channel"], dev,
+                             torch.float64, **kw)
+        b._setup_problem()
+        load_checkpoint(path, b, bts)
+        advance(a, ats, 3, dts[3:6])
+        advance(b, bts, 3, dts[3:6])
+        resumed_equal = bool(
+            torch.equal(a.solution, b.solution)
+            and torch.equal(a._phi, b._phi)
+            and torch.equal(a._u_old, b._u_old)
+            and ats.current_time == bts.current_time)
+    emit({"phase": "solver_parity", "steps": n_steps, "dtype": "float64",
+          "cases": cases, "checkpoint_resume_bitwise": resumed_equal})
+    for name, case in cases.items():
+        for key, err in case["rel_err"].items():
+            if not err <= 1e-9:
+                raise AssertionError(f"solver f64 parity {name} {key}: rel "
+                                     f"err {err} > 1e-9")
+        for key in ("u", "p"):
+            if not case["rerun_on_card"][key] <= 1e-12:
+                raise AssertionError(f"solver_parity {name}: a second card "
+                                     f"run differs in {key} by "
+                                     f"{case['rerun_on_card'][key]}")
+    if not resumed_equal:
+        raise AssertionError("solver_parity: the resumed run differs from "
+                             "the unbroken one")
+
+
+GROUPS = ("kernels", "structured", "solver")
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", default=None, metavar="DIR",
@@ -892,42 +1385,80 @@ def main():
                          "each path here")
     ap.add_argument("--baseline", default=None, metavar="DIR",
                     help="also time the kernels of the checkout in DIR")
+    ap.add_argument("--phases", default=",".join(GROUPS), metavar="LIST",
+                    help="comma-separated groups to run, of "
+                         f"{', '.join(GROUPS)} (default: all; a subset "
+                         "prints no kernels line)")
     args = ap.parse_args()
+    groups = set(args.phases.split(","))
+    if not groups <= set(GROUPS):
+        ap.error(f"--phases takes {', '.join(GROUPS)}")
 
     smi, kind = phase_device()
     phase_build()
-    st = Setup(torch.device(DEVICE))
-    err_apply = phase_apply(st)
-    err_pcg, subs32 = phase_pcg(st)
-    launches = phase_main(st, smi, args.profile)
-    steps = N_WARMUP + N_STEPS + 1
-    times = phase_timing(st, subs32, smi,
-                         {k: v / steps for k, v in launches.items()})
-    if args.baseline:
-        phase_baseline(st, subs32, smi, args.baseline)
-    phase_parity(st)
-    setups = []
-    for name in STRUCTURED:
-        setups.append(StructuredSetup(name, st.dev))
-        phase_structured(setups[-1], smi, args.profile)
-    phase_structured_timing(setups, smi)
-    phase_structured_parity(setups)
+    dev = torch.device(DEVICE)
+    raw_ms, by_path = {}, {}
+    if "kernels" in groups:
+        st = Setup(dev)
+        err_apply = phase_apply(st)
+        err_pcg, subs32 = phase_pcg(st)
+        by_path["main"], raw_ms["main"] = phase_main(st, smi, args.profile)
+        steps = N_WARMUP + N_STEPS + 1
+        times = phase_timing(st, subs32, smi,
+                             {k: v / steps
+                              for k, v in by_path["main"].items()})
+        if args.baseline:
+            phase_baseline(st, subs32, smi, args.baseline)
+        phase_parity(st)
+    if "structured" in groups:
+        setups = []
+        for name in STRUCTURED:
+            setups.append(StructuredSetup(name, dev))
+            raw_ms[name] = phase_structured(setups[-1], smi, args.profile)
+        phase_structured_timing(setups, smi)
+        phase_structured_parity(setups)
+        del setups
+    if "solver" in groups:
+        _, by_path["solver_cavity"] = phase_solver_cavity(dev, smi,
+                                                          args.profile)
+        by_path["solver_cavity_kernels"], cavity_t, err_cavity = \
+            phase_solver_cavity_kernels(dev, smi)
+        by_path["solver_periodic_fast"] = phase_solver_periodic(dev, smi,
+                                                                raw_ms)
+        phase_solver_parity(dev)
 
-    src = "navierstokes_tpu_torch/csrc/band.cu"
-    keys = ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms", "launches_per_step")
-    apply_t = times["circulant_apply"]["M_b2"]
-    pcg_t = times["circulant_pcg_step"]
-    print(json.dumps({"kernels": [
-        {"name": "circulant_apply", "route": "cuda", "source": src,
-         "replaces": REPLACES["circulant_apply"],
-         "launches": launches["circulant_apply"],
-         "max_abs_err": err_apply, **{k: apply_t[k] for k in keys}},
-        {"name": "circulant_pcg", "route": "cuda", "source": src,
-         "replaces": REPLACES["circulant_pcg"],
-         "launches": launches["circulant_pcg"],
-         "max_abs_err": err_pcg, **{k: pcg_t[k] for k in keys}}]}),
-        flush=True)
+    if groups == set(GROUPS):
+        # ``launches`` sums the paths, each counted from 0 by its own phase;
+        # every path that a kernel is on must have launched it
+        on_path = {"circulant_apply": list(by_path),
+                   "circulant_pcg": ["main", "solver_cavity_kernels"]}
+        for name, paths in on_path.items():
+            for path in paths:
+                if by_path[path][name] <= 0:
+                    raise AssertionError(f"{name} was not launched by the "
+                                         f"path {path}")
+        src = "navierstokes_tpu_torch/csrc/band.cu"
+        keys = ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms", "launches_per_step")
+        apply_t = times["circulant_apply"]["M_b2"]
+        pcg_t = times["circulant_pcg_step"]
+        cavity_keys = ("route", "ms", "device_ms", "plain_ms", "bound_ms",
+                       "bound_by")
+
+        def row(name, err, t, extra):
+            return {"name": name, "route": "cuda", "source": src,
+                    "replaces": REPLACES[name],
+                    "launches": sum(c[name] for c in by_path.values()),
+                    "launches_by_path": {p: c[name]
+                                         for p, c in by_path.items()},
+                    "max_abs_err": err, **{k: t[k] for k in keys}, **extra}
+
+        print(json.dumps({"kernels": [
+            row("circulant_apply", err_apply, apply_t, {}),
+            row("circulant_pcg", max(err_pcg, err_cavity), pcg_t,
+                {"cavity_solves": {n: {k: t[k] for k in cavity_keys}
+                                   for n, t in cavity_t.items()}})]}),
+            flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -1,1 +1,2 @@
-"""Operator assembly: host CSR assembly, device formats, band kernels."""
+"""Operator assembly: host CSR assembly, device formats, band kernels,
+element kernels and the mixed operator."""

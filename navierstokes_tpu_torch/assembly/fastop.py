@@ -9,18 +9,26 @@ package; the device formats hold torch tensors:
   (P2 mass/stiffness 23 on a 2D torus, P1 Laplacian 9); the band is stored
   dense ``(n_offsets, N)`` and applied by the CUDA kernel of
   ``cuda_band.circulant_apply`` (plain torch for CPU tensors).
+* ``AffineBand`` -- otherwise (operators of non-periodic boxes, the
+  rectangular velocity/pressure couplings), a block-window band: rows in
+  blocks of 128, each block's columns inside a window whose start is
+  affine in the block index; the apply is window construction by
+  reshape/static slices plus one batched dense mat-vec (``torch.bmm``).
+* ``GatherOp`` -- the rim couplings above ``NS_FASTOP_RIM_BYTES`` of band
+  storage, as sorted COO applied by a padded row-wise gather.
 * ``StencilCoupling`` -- the P2<->P1 gradient/divergence couplings on
   translation-class torus grids as a class-constant stencil.
 * ``StridedConv`` -- the convection quadrature over translation classes
   of cells, as static slices of the wrap-padded parity phases.
 
 Not ported yet (each raises ``NotImplementedError`` where a caller reaches
-it): ``AffineBand`` and the RCM ordering (non-periodic and unstructured
-meshes), ``GatherOp`` rim couplings, and 3D.
+it): the RCM ordering (meshes whose operators are not circulant under the
+lexicographic order, ROADMAP item 5a-RCM) and 3D (ROADMAP item 5d).
 """
 
 from __future__ import annotations
 
+import os
 from typing import NamedTuple
 
 import numpy as np
@@ -29,6 +37,9 @@ import torch
 
 from navierstokes_tpu_torch import config
 from navierstokes_tpu_torch.assembly import cuda_band
+from navierstokes_tpu_torch.utils.segment import ell_from_sorted_coo
+
+RB = 128  # rows per block in AffineBand
 
 
 # ---------------------------------------------------------------------------
@@ -147,26 +158,217 @@ class CirculantBand:
         return torch.zeros(self.n, dtype=self.band.dtype,
                            device=self.band.device)
 
+    @property
+    def nbytes(self):
+        return self.band.numel() * self.band.element_size()
 
-def build_operator(A, dtype, device, name=""):
-    """Device format for a (permuted) CSR matrix: a CirculantBand when the
-    offset count is at most ``cuda_band.MAX_OFFSETS`` (the JAX package's
-    ``circulant_cap``).  The AffineBand format is not ported yet."""
+
+class AffineBand:
+    """Block-window band: rows in blocks of RB, window start affine in b.
+
+    ``bandmat`` is (nblk, RB, W) with
+        A[b*RB + i, start_b + w] = bandmat[b, i, w],
+        start_b = b * stride - b_lo.
+    Window construction is static slicing of the padded x reshaped to
+    stride-wide tiles; the apply is one batched dense mat-vec.
+    """
+
+    def __init__(self, n_rows, n_cols, stride, b_lo, bandmat, dtype,
+                 device):
+        self.n_rows = int(n_rows)
+        self.n_cols = int(n_cols)
+        self.stride = int(stride)
+        self.b_lo = int(b_lo)
+        bandmat = np.asarray(bandmat)
+        nblk, rb, W = bandmat.shape
+        if rb != RB:
+            raise ValueError(f"bandmat has {rb} rows per block, not {RB}")
+        self.nblk = nblk
+        s = self.stride
+        self.T = -(-W // s)
+        Wp = self.T * s
+        if Wp != W:
+            bandmat = np.concatenate(
+                [bandmat, np.zeros((nblk, RB, Wp - W), bandmat.dtype)],
+                axis=2)
+        self.W = Wp
+        self._diag_host = self._extract_diag(bandmat)
+        self.bandmat = torch.tensor(bandmat, dtype=dtype, device=device)
+        # padded-x length: window max = (nblk-1)*s + Wp, plus front pad b_lo
+        need = self.b_lo + (self.nblk - 1) * s + Wp
+        self.pad_back = max(need - self.n_cols, 0)
+        total = self.b_lo + self.n_cols + self.pad_back
+        self.pad_back += (-total) % s
+        self.n_tiles = (self.b_lo + self.n_cols + self.pad_back) // s
+
+    def _windows(self, x):
+        """x: (..., n_cols) -> (..., nblk, W) window matrix.
+
+        The padding is *circular* (xp[i] = x[(i - b_lo) mod N]): periodic
+        wrap columns live near the window under the centered-mod offsets
+        of ``build_operator``; for non-periodic operators the wrapped
+        reads multiply zero band entries, so they are inert.  The windows
+        are written once (the ``stack``); everything before it is a view
+        of the padded copy of x.
+        """
+        total = self.b_lo + self.n_cols + self.pad_back
+        s0 = (-self.b_lo) % self.n_cols
+        reps = -(-(s0 + total) // self.n_cols)
+        xp = torch.cat([x] * reps, dim=-1)[..., s0:s0 + total]
+        tiles = xp.reshape(x.shape[:-1] + (self.n_tiles, self.stride))
+        parts = [tiles[..., t:t + self.nblk, :] for t in range(self.T)]
+        wins = torch.stack(parts, dim=-2)         # (..., nblk, T, s)
+        return wins.reshape(x.shape[:-1] + (self.nblk, self.W))
+
+    def apply(self, x):
+        """x: (..., n_cols) -> (..., n_rows)."""
+        lead = tuple(x.shape[:-1])
+        wins = self._windows(x).reshape(-1, self.nblk, self.W)
+        # (nblk, RB, W) @ (nblk, W, B) -> (nblk, RB, B)
+        out = torch.bmm(self.bandmat, wins.permute(1, 2, 0))
+        out = out.permute(2, 0, 1).reshape(lead + (self.nblk * RB,))
+        return out[..., :self.n_rows]
+
+    def _extract_diag(self, bandmat):
+        if self.n_rows != self.n_cols:
+            return None
+        rows = np.arange(self.n_rows)
+        b, i = rows // RB, rows % RB
+        rel = (np.mod(rows - b * self.stride + self.n_cols // 2,
+                      self.n_cols) - self.n_cols // 2)
+        w = rel + self.b_lo
+        ok = (w >= 0) & (w < self.W)
+        diag = np.zeros(self.n_rows, bandmat.dtype)
+        diag[ok] = bandmat[b[ok], i[ok], w[ok]]
+        return diag
+
+    def diagonal(self):
+        if self._diag_host is None:
+            raise ValueError("a rectangular AffineBand has no diagonal")
+        return torch.tensor(self._diag_host, dtype=self.bandmat.dtype,
+                            device=self.bandmat.device)
+
+    @property
+    def nbytes(self):
+        return self.bandmat.numel() * self.bandmat.element_size()
+
+
+class StructureError(ValueError):
+    """No gather-free format fits this operator."""
+
+
+def build_operator(A, dtype, device, name="", *,
+                   circulant_cap=cuda_band.MAX_OFFSETS, window_cap=6144,
+                   max_bytes=None):
+    """Pick the device format for a (permuted) CSR matrix.
+
+    Tries CirculantBand (offset count <= ``circulant_cap``, itself at most
+    ``cuda_band.MAX_OFFSETS``, the band kernels' limit), then AffineBand
+    (window width <= ``window_cap`` and band storage <= ``max_bytes``,
+    default ``NS_FASTOP_MAX_BYTES`` or 1e9).  Raises ``StructureError`` if
+    neither fits.
+    """
+    if circulant_cap > cuda_band.MAX_OFFSETS:
+        raise ValueError(f"circulant_cap {circulant_cap} exceeds the band "
+                         f"kernels' {cuda_band.MAX_OFFSETS} offsets")
+    if max_bytes is None:
+        max_bytes = float(os.environ.get("NS_FASTOP_MAX_BYTES", 1e9))
+    np_dt = config.numpy_dtype(dtype)
     A = A.tocoo()
     n_rows, n_cols = A.shape
     if n_rows == n_cols:
         off = np.mod(A.col - A.row, n_cols)
         uniq = np.unique(off)
-        if len(uniq) <= cuda_band.MAX_OFFSETS:
+        if len(uniq) <= circulant_cap:
             idx = np.searchsorted(uniq, off)
-            band = np.zeros((len(uniq), n_cols),
-                            dtype=config.numpy_dtype(dtype))
+            band = np.zeros((len(uniq), n_cols), dtype=np_dt)
             band[idx, A.row] = A.data
             return CirculantBand.from_numpy(uniq, band, dtype, device)
-    raise NotImplementedError(
-        f"{name or 'operator'}: not circulant within "
-        f"{cuda_band.MAX_OFFSETS} offsets; the AffineBand format is not "
-        "ported yet")
+    # affine block-window band (centered-mod offsets: periodic wrap
+    # columns fold back near the window)
+    stride = max(int(round(RB * n_cols / n_rows)), 1)
+    b = A.row // RB
+    rel = np.mod(A.col - b * stride + n_cols // 2, n_cols) - n_cols // 2
+    b_lo = int(max(-rel.min(), 0))
+    W = int(rel.max() + b_lo + 1)
+    if W > window_cap:
+        raise StructureError(
+            f"{name or 'operator'}: window {W} exceeds cap {window_cap}")
+    nblk = -(-n_rows // RB)
+    W_pad = -(-W // stride) * stride    # pre-pad to the stride multiple
+    est = nblk * RB * W_pad * np.dtype(np_dt).itemsize
+    if est > max_bytes:
+        raise StructureError(
+            f"{name or 'operator'}: band storage {est/1e9:.2f} GB exceeds "
+            f"NS_FASTOP_MAX_BYTES={max_bytes/1e9:.2f} GB")
+    bandmat = np.zeros((nblk, RB, W_pad), dtype=np_dt)
+    bandmat[b, A.row % RB, rel + b_lo] = A.data
+    return AffineBand(n_rows, n_cols, stride, b_lo, bandmat, dtype, device)
+
+
+class GatherOp:
+    """Sorted-COO rim operator.
+
+    The rectangular couplings (gradient/divergence) apply only ~3x per
+    projection step, while their *band* storage grows with the grid line
+    length (O(N^1.5) in total).  Above ``NS_FASTOP_RIM_BYTES`` the engine
+    stores them as plain sorted COO (``rows``, ``cols``, ``vals``)
+    instead.  The apply gathers x through the row-wise padded table of
+    :func:`ell_from_sorted_coo` and sums each row's products in column
+    order: a scatter-add without atomics, the same bits on every run.
+    """
+
+    def __init__(self, rows, cols, vals, shape, dtype, device):
+        self.n_rows, self.n_cols = (int(v) for v in shape)
+        rows = np.asarray(rows, dtype=np.int64)
+        cols = np.asarray(cols, dtype=np.int64)
+        vals = np.asarray(vals).astype(config.numpy_dtype(dtype))
+        if np.any(np.diff(rows) < 0):
+            raise ValueError("GatherOp rows must be sorted")
+        self.rows = torch.as_tensor(rows.astype(np.int32), device=device)
+        self.cols = torch.as_tensor(cols.astype(np.int32), device=device)
+        self.vals = torch.as_tensor(vals, device=device)
+        table, slots = ell_from_sorted_coo(rows, cols, self.n_rows,
+                                           pad=self.n_cols)
+        ell = np.zeros(table.size, dtype=vals.dtype)
+        ell[slots] = vals
+        self._cols_ell = torch.as_tensor(table, device=device)
+        self._vals_ell = torch.as_tensor(ell.reshape(table.shape),
+                                         device=device)
+
+    @classmethod
+    def from_scipy(cls, A, dtype, device):
+        coo = A.tocoo()
+        coo.sum_duplicates()
+        order = np.lexsort((coo.col, coo.row))
+        return cls(coo.row[order], coo.col[order], coo.data[order], A.shape,
+                   dtype, device)
+
+    def apply(self, x):
+        """x: (..., n_cols) -> (..., n_rows)."""
+        xp = torch.cat([x, x.new_zeros(x.shape[:-1] + (1,))], dim=-1)
+        return (self._vals_ell * xp[..., self._cols_ell]).sum(dim=-1)
+
+    @property
+    def nbytes(self):
+        return (self.vals.numel() * self.vals.element_size()
+                + self.rows.numel() * 8)
+
+
+def build_rim_operator(A, dtype, device, name="", *,
+                       circulant_cap=cuda_band.MAX_OFFSETS, window_cap=6144,
+                       max_bytes=None):
+    """Band format if it fits the rim budget (``NS_FASTOP_RIM_BYTES``,
+    default 2.5e8), else sorted-COO gather."""
+    rim_cap = float(os.environ.get("NS_FASTOP_RIM_BYTES", 2.5e8))
+    if max_bytes is not None:
+        rim_cap = min(rim_cap, max_bytes)
+    try:
+        return build_operator(A, dtype, device, name=name,
+                              circulant_cap=circulant_cap,
+                              window_cap=window_cap, max_bytes=rim_cap)
+    except StructureError:
+        return GatherOp.from_scipy(A, dtype, device)
 
 
 class StencilCoupling:
@@ -445,11 +647,56 @@ def _torus_grids(ucoords, pcoords):
     return fine, coarse
 
 
-def _is_circulant(A, perm):
+def _is_circulant(A, perm, cap):
     A = A.tocoo()
     inv = _inverse(perm)
     off = np.mod(inv[A.col] - inv[A.row], A.shape[0])
-    return len(np.unique(off)) <= cuda_band.MAX_OFFSETS
+    return len(np.unique(off)) <= cap
+
+
+def _early_band_guard(space, cu, Nu, dtype, circulant_cap, window_cap,
+                      max_bytes):
+    """Fail FAST (seconds, before any CSR assembly) when no band format
+    can plausibly fit.  Samples cells under the lex permutation: if the
+    sampled mod-offset count rules out the circulant format AND the
+    sampled block-window lower bound overshoots the affine-band caps by
+    >= 4x, raise StructureError now.
+    """
+    if max_bytes is None:
+        max_bytes = float(os.environ.get("NS_FASTOP_MAX_BYTES", 1e9))
+    ucoords, _ = node_coordinates(space)
+    perm = _inverse(lex_permutation(ucoords))
+    rng = np.random.default_rng(0)
+    pick = rng.choice(len(cu), size=min(len(cu), 2048), replace=False)
+    # interior-only samples of a non-periodic box LOOK circulant
+    # (translation-invariant stencil); the boundary rows are what break
+    # the format, so sample them explicitly too
+    bnd = np.unique(np.asarray(
+        space.mesh.facet_cell[space.mesh.exterior_facet_mask]))
+    if len(bnd) > 1024:
+        bnd = bnd[rng.choice(len(bnd), size=1024, replace=False)]
+    sample = cu[np.unique(np.concatenate([pick, bnd]))]
+    pc = perm[sample]                          # (ns, nn) permuted ids
+    # the rectangular G/D couplings always have the sorted-COO rim
+    # fallback, so feasibility hinges on the SQUARE velocity operators
+    nn = pc.shape[1]
+    offs = np.mod(pc[:, :, None] - pc[:, None, :], Nu).ravel()
+    if len(np.unique(offs)) <= circulant_cap:
+        return
+    item = np.dtype(config.numpy_dtype(dtype)).itemsize
+    nblk = -(-Nu // RB)
+    rows = np.repeat(pc, nn, axis=1).ravel()
+    cols = np.tile(pc, (1, nn)).ravel()
+    rel = np.mod(cols - (rows // RB) * RB + Nu // 2, Nu) - Nu // 2
+    W_lb = int(rel.max() - rel.min() + 1)
+    est = nblk * RB * W_lb * item
+    if W_lb > 4 * window_cap or est > 3 * max_bytes:
+        raise StructureError(
+            f"velocity-stiffness band storage lower bound "
+            f"{est/1e9:.2f} GB / window {W_lb} from sampled cells "
+            f"rules out the banded formats (caps "
+            f"{max_bytes/1e9:.2f} GB / {window_cap}) "
+            f"-- refusing before assembly")
 
 
 def _detect_strided_convection(cu_p, ucoords, W, g2):
@@ -509,18 +756,26 @@ class FastTaylorHood:
 
     Works in lexicographic node numberings (``permU``, ``permP``) and the
     planar velocity layout ``(dim, n_unodes)``.  Use ``permute_*`` /
-    ``unpermute_*`` at solver boundaries; keep state permuted across
-    steps.  Device tensors are made on ``device`` (default: the card; the
-    CPU only with ``device="cpu"``) in ``dtype`` (default:
+    ``unpermute_*`` (or ``interleaved_to_planar`` /
+    ``planar_to_interleaved``) at solver boundaries; keep state permuted
+    across steps.  Device tensors are made on ``device`` (default: the
+    card; the CPU only with ``device="cpu"``) in ``dtype`` (default:
     ``config.default_dtype(device)``).
 
-    Only 2D periodic structured meshes are ported so far (circulant bands,
-    stencil couplings); other meshes raise ``NotImplementedError``.
+    2D structured boxes are ported, periodic or not: the square operators
+    are circulant under the lexicographic order (``structured``), the
+    couplings torus stencils on periodic boxes and rim operators
+    (``AffineBand`` / ``GatherOp``) otherwise.  Meshes that need the RCM
+    ordering (ROADMAP item 5a-RCM) and 3D spaces (ROADMAP item 5d) raise
+    ``NotImplementedError``.
     """
 
-    def __init__(self, space, dtype=None, device=None):
+    def __init__(self, space, dtype=None, device=None, *,
+                 circulant_cap=cuda_band.MAX_OFFSETS, window_cap=6144,
+                 max_bytes=None):
         if space.dim != 2:
-            raise NotImplementedError("3D is not ported yet")
+            raise NotImplementedError(
+                "3D is not ported yet (ROADMAP item 5d)")
         self.space = space
         self.dim = space.dim
         self.device = device = config.require_device(device)
@@ -529,6 +784,8 @@ class FastTaylorHood:
         cu = np.asarray(space.cell_unodes)
         cp = np.asarray(space.cell_pnodes)
         Nu, Np = space.n_unodes, space.n_pnodes
+        _early_band_guard(space, cu, Nu, dt, circulant_cap, window_cap,
+                          max_bytes)
         em = scalar_element_matrices(space)
         M = assemble_csr(em["M2"], cu, cu, (Nu, Nu))
         K = assemble_csr(em["K2"], cu, cu, (Nu, Nu))
@@ -540,10 +797,12 @@ class FastTaylorHood:
         ucoords, pcoords = node_coordinates(space)
         permU = lex_permutation(ucoords)
         permP = lex_permutation(pcoords)
-        if not (_is_circulant(K, permU) and _is_circulant(L, permP)):
+        if not (_is_circulant(K, permU, circulant_cap)
+                and _is_circulant(L, permP, circulant_cap)):
             raise NotImplementedError(
                 "operators are not circulant under the lexicographic "
-                "order; the RCM ordering and AffineBand are not ported yet")
+                "order; the RCM ordering is not ported yet (ROADMAP item "
+                "5a-RCM)")
         self.permU, self.invU = permU, _inverse(permU)
         self.permP, self.invP = permP, _inverse(permP)
 
@@ -553,25 +812,31 @@ class FastTaylorHood:
         def pp(A):
             return A.tocsr()[permP][:, permP]
 
-        kw = dict(dtype=dt, device=device)
+        kw = dict(dtype=dt, device=device, circulant_cap=circulant_cap,
+                  window_cap=window_cap, max_bytes=max_bytes)
         self.M = build_operator(pu(M), name="mass", **kw)
         self.K = build_operator(pu(K), name="stiffness", **kw)
         self.L = build_operator(pp(L), name="pressure-stiffness", **kw)
         self.Mp = build_operator(pp(Mp), name="pressure-mass", **kw)
+        self.structured = all(
+            isinstance(op, CirculantBand) for op in (self.M, self.K, self.L))
 
-        grids = _torus_grids(ucoords, pcoords)
+        # rectangular couplings: exact class-constant stencil on
+        # translation-class torus grids; else banded while cheap,
+        # sorted-COO gather beyond NS_FASTOP_RIM_BYTES
+        grids = _torus_grids(ucoords, pcoords) if self.structured else None
         self.G, self.D = [], []
         for d, Gd in enumerate(Gs):
             Gp = Gd.tocsr()[permU][:, permP]
             Dp = Gd.tocsr().T.tocsr()[permP][:, permU]
-            pair = [detect_stencil_coupling(A, kind, *grids, dt, device)
-                    if grids else None for A, kind in ((Gp, "G"), (Dp, "D"))]
-            if any(op is None for op in pair):
-                raise NotImplementedError(
-                    f"coupling {d} is not a torus stencil; the GatherOp / "
-                    "AffineBand rim formats are not ported yet")
-            self.G.append(pair[0])
-            self.D.append(pair[1])
+            g = detect_stencil_coupling(Gp, "G", *grids, dt, device) \
+                if grids else None
+            dd = detect_stencil_coupling(Dp, "D", *grids, dt, device) \
+                if grids else None
+            self.G.append(g if g is not None else build_rim_operator(
+                Gp, name=f"gradient[{d}]", **kw))
+            self.D.append(dd if dd is not None else build_rim_operator(
+                Dp, name=f"divergence[{d}]", **kw))
 
         conv = self._setup_convection()
         self.ops = PlanarOps(
@@ -581,6 +846,7 @@ class FastTaylorHood:
             diag_mp=self.Mp.diagonal(), conv_strided=self.conv_strided,
             permU=torch.as_tensor(permU, device=device),
             permP=torch.as_tensor(permP, device=device), **conv)
+        self._index_cache = {}
 
     def _setup_convection(self):
         space = self.space
@@ -614,22 +880,44 @@ class FastTaylorHood:
             conv.update(conv_Wc=dev_f(Wc), conv_g2c=dev_f(g2c))
         return conv
 
+    # -- layout helpers ------------------------------------------------------
+    def interleaved_to_planar(self, u_flat):
+        """(n_unodes*dim,) node-major interleaved -> permuted (dim, Nu),
+        on the engine's device in its dtype."""
+        u2 = torch.as_tensor(u_flat, device=self.device).to(self.dtype) \
+            .reshape(-1, self.dim).T
+        return self.permute_velocity(u2)
+
+    def planar_to_interleaved(self, u_planar):
+        """permuted (dim, Nu) -> (n_unodes*dim,) node-major interleaved."""
+        return self.unpermute_velocity(u_planar).T.reshape(-1)
+
+    def diagonals(self):
+        """(diag_M (Nu,), diag_K (Nu,), diag_L (Np,)) -- scalar per node."""
+        return self.M.diagonal(), self.K.diagonal(), self.L.diagonal()
+
     # -- permutation helpers (node axis last) --------------------------------
-    @staticmethod
-    def _take(a, idx):
-        return a[..., torch.as_tensor(idx, device=a.device)]
+    def _take(self, a, name):
+        """``a[..., idx]`` for the index array ``name``, kept on each
+        device it was asked for (no upload per call)."""
+        key = (name, a.device)
+        idx = self._index_cache.get(key)
+        if idx is None:
+            idx = self._index_cache[key] = torch.as_tensor(
+                getattr(self, name), device=a.device)
+        return a[..., idx]
 
     def permute_velocity(self, u_planar):
-        return self._take(u_planar, self.permU)
+        return self._take(u_planar, "permU")
 
     def unpermute_velocity(self, u_planar):
-        return self._take(u_planar, self.invU)
+        return self._take(u_planar, "invU")
 
     def permute_pressure(self, p):
-        return self._take(p, self.permP)
+        return self._take(p, "permP")
 
     def unpermute_pressure(self, p):
-        return self._take(p, self.invP)
+        return self._take(p, "invP")
 
 
 # ---------------------------------------------------------------------------
@@ -641,28 +929,59 @@ _CONV = ("conv_cu", "conv_W", "conv_N2", "conv_g2", "conv_table",
          "conv_Wc", "conv_g2c")
 
 
+def _op_to_numpy(op) -> dict:
+    """One operator of either package as a dict of NumPy arrays; the
+    ``format`` key names its class."""
+    name = type(op).__name__
+    if name == "CirculantBand":
+        return {"format": name, "offsets": np.asarray(op.offsets, np.int64),
+                "band": _to_numpy(op.band)}
+    if name == "StencilCoupling":
+        return {"format": name, "kind": op.kind, "fine": tuple(op.fine),
+                "coarse": tuple(op.coarse), "offs": op.offs,
+                "weights": _to_numpy(op.weights)}
+    if name == "AffineBand":
+        return {"format": name, "n_rows": op.n_rows, "n_cols": op.n_cols,
+                "stride": op.stride, "b_lo": op.b_lo,
+                "bandmat": _to_numpy(op.bandmat)}
+    if name == "GatherOp":
+        return {"format": name, "shape": (op.n_rows, op.n_cols),
+                "rows": _to_numpy(op.rows), "cols": _to_numpy(op.cols),
+                "vals": _to_numpy(op.vals)}
+    raise TypeError(f"unknown operator format {name}")
+
+
+def _op_from_numpy(e: dict, dtype, device):
+    fmt = e.get("format", "StencilCoupling" if "kind" in e
+                else "CirculantBand")
+    if fmt == "CirculantBand":
+        return CirculantBand.from_numpy(e["offsets"], e["band"], dtype,
+                                        device)
+    if fmt == "StencilCoupling":
+        return StencilCoupling(e["kind"], e["fine"], e["coarse"], e["offs"],
+                               e["weights"], dtype, device)
+    if fmt == "AffineBand":
+        return AffineBand(e["n_rows"], e["n_cols"], e["stride"], e["b_lo"],
+                          e["bandmat"], dtype, device)
+    if fmt == "GatherOp":
+        return GatherOp(e["rows"], e["cols"], e["vals"], e["shape"], dtype,
+                        device)
+    raise TypeError(f"unknown operator format {fmt}")
+
+
 def planar_ops_to_numpy(fast) -> dict:
     """The operator bundle of an engine as a dict of NumPy arrays.
 
     ``fast`` is a FastTaylorHood of either package: only the attributes
     both share are read (``ops``, ``conv_strided``, ``permU``, ``permP``),
-    and every array goes through ``numpy.asarray``.  Only circulant bands
-    and stencil couplings are carried.
+    and every array goes through ``numpy.asarray``.  All four formats are
+    carried (circulant and affine bands, stencil and gather couplings).
     """
     ops = fast.ops
-
-    def band(op):
-        return {"offsets": np.asarray(op.offsets, np.int64),
-                "band": _to_numpy(op.band)}
-
-    def stencil(op):
-        return {"kind": op.kind, "fine": tuple(op.fine),
-                "coarse": tuple(op.coarse), "offs": op.offs,
-                "weights": _to_numpy(op.weights)}
-
-    d = {name: band(getattr(ops, name)) for name in ("M", "K", "L", "Mp")}
-    d["G"] = [stencil(op) for op in ops.G]
-    d["D"] = [stencil(op) for op in ops.D]
+    d = {name: _op_to_numpy(getattr(ops, name))
+         for name in ("M", "K", "L", "Mp")}
+    d["G"] = [_op_to_numpy(op) for op in ops.G]
+    d["D"] = [_op_to_numpy(op) for op in ops.D]
     for name in _DIAGS + _CONV:
         val = getattr(ops, name)
         d[name] = None if val is None else _to_numpy(val)
@@ -680,13 +999,8 @@ def planar_ops_from_numpy(d: dict, device=None, dtype=None) -> PlanarOps:
     device = config.require_device(device)
     dtype = config.resolve_dtype(dtype, device)
 
-    def band(e):
-        return CirculantBand.from_numpy(e["offsets"], e["band"], dtype,
-                                        device)
-
-    def stencil(e):
-        return StencilCoupling(e["kind"], e["fine"], e["coarse"], e["offs"],
-                               e["weights"], dtype, device)
+    def op(e):
+        return _op_from_numpy(e, dtype, device)
 
     # torch.tensor copies: arrays read from JAX are read-only views
     def floats(a):
@@ -698,9 +1012,8 @@ def planar_ops_from_numpy(d: dict, device=None, dtype=None) -> PlanarOps:
 
     cs = d["conv_strided"]
     return PlanarOps(
-        M=band(d["M"]), K=band(d["K"]), L=band(d["L"]), Mp=band(d["Mp"]),
-        G=tuple(stencil(e) for e in d["G"]),
-        D=tuple(stencil(e) for e in d["D"]),
+        M=op(d["M"]), K=op(d["K"]), L=op(d["L"]), Mp=op(d["Mp"]),
+        G=tuple(op(e) for e in d["G"]), D=tuple(op(e) for e in d["D"]),
         **{name: floats(d[name]) for name in _DIAGS},
         conv_cu=ints(d["conv_cu"]), conv_table=ints(d["conv_table"]),
         conv_W=floats(d["conv_W"]), conv_N2=floats(d["conv_N2"]),

@@ -63,3 +63,10 @@ def numpy_dtype(dtype: torch.dtype):
     import numpy as np
 
     return np.float64 if dtype == torch.float64 else np.float32
+
+
+def default_tol(dtype: torch.dtype) -> float:
+    """Default nonlinear residual tolerance matched to the precision:
+    1e-10 in float64; in float32 that is unreachable and 5e-5 tracks the
+    same "converged to roundoff" contract."""
+    return 1.0e-10 if dtype == torch.float64 else 5.0e-5

@@ -1,2 +1,2 @@
 """Finite-element core: reference elements, quadrature, the Taylor-Hood
-space."""
+space, boundary-condition types and their compilation."""

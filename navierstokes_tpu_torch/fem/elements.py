@@ -67,6 +67,12 @@ def tetrahedron_quadrature(degree: int):
     return np.array(pts), np.array(wts)
 
 
+def interval_quadrature(degree: int):
+    """Gauss-Legendre on [0, 1] for facet (edge) integrals in 2D."""
+    n = max(1, (int(degree) + 2) // 2)
+    return _gauss_legendre01(n)
+
+
 def simplex_quadrature(dim: int, degree: int):
     if dim == 2:
         return triangle_quadrature(degree)
@@ -141,3 +147,24 @@ def tabulate(degree: int, points: np.ndarray, dim: int):
     if degree == 2:
         return tabulate_p2(points, dim)
     raise ValueError(f"unsupported degree {degree}")
+
+
+def facet_embedding(dim: int, local_facet: int, facet_points: np.ndarray):
+    """Map facet reference coordinates into cell reference coordinates.
+
+    2D: facet_points (nq, 1) on [0,1] -> (nq, 2) on the triangle, running
+    along facet ``local_facet`` (opposite vertex ``local_facet``) from its
+    first to its second vertex in the cell's local ordering.
+    3D: facet_points (nq, 2) on the reference triangle -> (nq, 3) on the tet.
+    """
+    verts = np.concatenate([np.zeros((1, dim)), np.eye(dim)], axis=0)
+    if dim == 2:
+        locs = _triangle_edge_pairs()[local_facet]
+        a, b = verts[locs[0]], verts[locs[1]]
+        t = facet_points.reshape(-1, 1)
+        return a[None, :] * (1.0 - t) + b[None, :] * t
+    face = [j for j in range(4) if j != local_facet]
+    a, b, c = verts[face[0]], verts[face[1]], verts[face[2]]
+    uv = facet_points
+    return (a[None, :] * (1.0 - uv[:, :1] - uv[:, 1:2])
+            + b[None, :] * uv[:, :1] + c[None, :] * uv[:, 1:2])

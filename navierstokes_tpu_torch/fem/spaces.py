@@ -6,8 +6,9 @@ nodes the vertices; periodic BCs merge slave nodes into master nodes
 before numbering.  Mixed dof layout ``[u_0x, u_0y, u_1x, ..., p_0, ...]``.
 
 Ported so far: the constructor (straight cells, optional periodicity),
-``split``, quadrature geometry and interpolation.  Boundary snapping,
-point evaluation and the facet machinery come with later slices.
+``split`` / ``join``, quadrature geometry, interpolation, the facet
+(boundary) machinery and vertex extraction.  Boundary snapping and point
+evaluation are not ported yet.
 """
 
 from __future__ import annotations
@@ -199,6 +200,12 @@ class TaylorHoodSpace:
         self.detJ_q = np.abs(det)
         self.Jinv_q = np.linalg.inv(Jq)
 
+        self._facet_edge_lookup = None
+
+    def velocity_dof(self, node_ranks: np.ndarray,
+                     component: int) -> np.ndarray:
+        return node_ranks * self.dim + component
+
     @property
     def pressure_offset(self) -> int:
         return self.n_velocity_dofs
@@ -208,6 +215,15 @@ class TaylorHoodSpace:
         u = x[:self.n_velocity_dofs].reshape(self.n_unodes, self.dim)
         return u, x[self.n_velocity_dofs:]
 
+    def join(self, u, p):
+        """The mixed vector of ``u`` (n_unodes, dim) and ``p``: NumPy for
+        NumPy arrays, torch for tensors."""
+        if isinstance(u, np.ndarray):
+            return np.concatenate([u.reshape(-1), p])
+        import torch
+
+        return torch.cat([u.reshape(-1), p])
+
     def quad_coords(self) -> np.ndarray:
         """Physical coordinates of the volume quadrature points (nc, nq, d)."""
         return np.einsum("qi,cid->cqd", self.N2, self.cell_ucoords)
@@ -216,6 +232,117 @@ class TaylorHoodSpace:
         """w_q * |det J_c(xi_q)| as an (nc, nq) array."""
         return self.detJ_q * self.quad_weights[None, :]
 
+    # -- facet (boundary) machinery ----------------------------------------
+    def facet_unodes(self, facet_ids: np.ndarray) -> np.ndarray:
+        """Unique velocity node ranks on the given facets (P2 trace)."""
+        mesh = self.mesh
+        ids = np.asarray(facet_ids)
+        verts = mesh.facets[ids].ravel()
+        if self.dim == 2:
+            mids = mesh.n_vertices + ids           # edge index == facet index
+        else:
+            mids = mesh.n_vertices + self._facet_edges(ids).ravel()
+        nodes = np.concatenate([verts, np.atleast_1d(mids).ravel()])
+        return np.unique(self._u_node_map[nodes])
+
+    def facet_pnodes(self, facet_ids: np.ndarray) -> np.ndarray:
+        verts = self.mesh.facets[np.asarray(facet_ids)].ravel()
+        return np.unique(self._p_node_map[verts])
+
+    def _facet_edges(self, facet_ids: np.ndarray) -> np.ndarray:
+        """(nf, 3) edge indices of triangle facets (3D only)."""
+        mesh = self.mesh
+        if self._facet_edge_lookup is None:
+            key = mesh.edges[:, 0].astype(np.int64) * mesh.n_vertices \
+                + mesh.edges[:, 1]
+            order = np.argsort(key)
+            self._facet_edge_lookup = (key[order], order)
+        skey, order = self._facet_edge_lookup
+        fv = np.sort(mesh.facets[np.asarray(facet_ids)], axis=1)  # (nf, 3)
+        pairs = np.stack([fv[:, [0, 1]], fv[:, [0, 2]], fv[:, [1, 2]]],
+                         axis=1)
+        qkey = pairs[..., 0].astype(np.int64) * mesh.n_vertices \
+            + pairs[..., 1]
+        pos = np.searchsorted(skey, qkey)
+        return order[pos].astype(np.int32)
+
+    def facet_batch(self, facet_ids: np.ndarray, quadrature_degree=None):
+        """Precomputed integration data for a set of facets.
+
+        Returns a dict of arrays for boundary assembly: cell (nf,), tables
+        selected per facet (N2/G2/N1 at embedded facet quadrature points),
+        physical quad coords, scaled weights, outward unit normals.
+        """
+        deg = quadrature_degree or self.quadrature_degree
+        mesh, dim = self.mesh, self.dim
+        ids = np.asarray(facet_ids, dtype=np.int64)
+        cells = mesh.facet_cell[ids]
+        local = mesh.facet_local_index[ids]
+
+        if dim == 2:
+            qf, wf = elements.interval_quadrature(deg)
+            qf = qf.reshape(-1, 1)
+        else:
+            qf, wf = elements.triangle_quadrature(deg)
+        nqf = len(wf)
+
+        n_local = dim + 1
+        N2_tab = np.empty((n_local, nqf, self.N2.shape[1]))
+        G2_tab = np.empty((n_local, nqf, self.N2.shape[1], dim))
+        N1_tab = np.empty((n_local, nqf, dim + 1))
+        for lf in range(n_local):
+            emb = elements.facet_embedding(dim, lf, qf)
+            N2_tab[lf], G2_tab[lf] = elements.tabulate(2, emb, dim)
+            N1_tab[lf], _ = elements.tabulate(1, emb, dim)
+
+        N2_f = N2_tab[local]                               # (nf, nqf, nn2)
+        G2_f = G2_tab[local]                               # (nf, nqf, nn2, d)
+        X = self.cell_ucoords[cells]                       # (nf, nn2, d)
+
+        # physical quad coords + cell Jacobians at the facet quadrature
+        # points through the isoparametric map (exact for straight cells)
+        xq = np.einsum("fqi,fid->fqd", N2_f, X)
+        Jf = np.einsum("fqie,fid->fqde", G2_f, X)          # (nf, nqf, d, d)
+        Jinv_f = np.linalg.inv(Jf)
+
+        straight_normals = mesh.facet_outward_normals(ids)
+        if dim == 2:
+            # curved-aware facet measure/normals: tangent tau(q) = J_f t_ref
+            # with t_ref the reference-edge direction of d(emb)/dq
+            t_ref = np.empty((n_local, 1, dim))
+            for lf in range(n_local):
+                e0 = elements.facet_embedding(dim, lf, np.array([[0.0]]))
+                e1 = elements.facet_embedding(dim, lf, np.array([[1.0]]))
+                t_ref[lf, 0] = (e1 - e0)[0]
+            tau = np.einsum("fqde,fqe->fqd", Jf, t_ref[local])
+            ds = np.linalg.norm(tau, axis=-1)              # (nf, nqf)
+            weights = (wf[None, :] / wf.sum()) * ds
+            normals = np.stack([tau[..., 1], -tau[..., 0]], axis=-1) / \
+                ds[..., None]
+            # orient outward (match the straight-facet normal)
+            sign = np.sign(np.einsum("fqd,fd->fq", normals,
+                                     straight_normals))[..., None]
+            normals = normals * np.where(sign == 0.0, 1.0, sign)
+        else:
+            areas = mesh.facet_areas(ids)
+            weights = areas[:, None] * (wf[None, :] / wf.sum())
+            normals = np.broadcast_to(
+                straight_normals[:, None, :], xq.shape).copy()
+
+        return {
+            "facet_ids": ids.astype(np.int32),
+            "cells": cells.astype(np.int32),
+            "local": local.astype(np.int32),
+            "N2": N2_f,                 # (nf, nqf, 6|10)
+            "G2": G2_f,                 # (nf, nqf, 6|10, dim)
+            "N1": N1_tab[local],        # (nf, nqf, 3|4)
+            "x": xq,                    # (nf, nqf, dim)
+            "weights": weights,         # (nf, nqf)
+            "normals": normals,         # (nf, nqf, dim) per-quad unit normals
+            "Jinv": Jinv_f,             # (nf, nqf, dim, dim)
+        }
+
+    # -- interpolation ------------------------------------------------------
     def interpolate_velocity(self, fn, t=None) -> np.ndarray:
         """Nodal interpolation of a velocity field onto (n_unodes, dim)."""
         vals = _eval_field(fn, self.u_coords, t, self.dim)
@@ -226,6 +353,14 @@ class TaylorHoodSpace:
         """Nodal interpolation of a pressure field onto (n_pnodes,)."""
         vals = _eval_field(fn, self.p_coords, t, None)
         return np.asarray(vals, dtype=np.float64).reshape(self.n_pnodes)
+
+    # -- vertex extraction (for visualization output) -----------------------
+    def vertex_velocity(self, u) -> np.ndarray:
+        """Velocity at mesh vertices (n_vertices, dim)."""
+        return np.asarray(u)[self._u_node_map[:self.mesh.n_vertices]]
+
+    def vertex_pressure(self, p) -> np.ndarray:
+        return np.asarray(p)[self._p_node_map[:self.mesh.n_vertices]]
 
 
 def _eval_field(fn, coords, t, vector_dim):

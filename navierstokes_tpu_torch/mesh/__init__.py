@@ -3,6 +3,8 @@
 from navierstokes_tpu_torch.mesh.core import (  # noqa: F401
     FacetMarkers,
     SimplexMesh,
+    boundary_normal,
+    extract_all_boundary_markers,
     merge_markers,
 )
 from navierstokes_tpu_torch.mesh.generators import (  # noqa: F401

@@ -162,6 +162,42 @@ class SimplexMesh:
     def exterior_facet_ids(self) -> np.ndarray:
         return np.nonzero(self.exterior_facet_mask)[0].astype(np.int32)
 
+    def facet_midpoints(self, facet_ids=None) -> np.ndarray:
+        ids = (np.arange(self.n_facets) if facet_ids is None
+               else np.asarray(facet_ids))
+        return self.points[self.facets[ids]].mean(axis=1)
+
+    def facet_areas(self, facet_ids=None) -> np.ndarray:
+        ids = (np.arange(self.n_facets) if facet_ids is None
+               else np.asarray(facet_ids))
+        fv = self.points[self.facets[ids]]
+        if self.dim == 2:
+            return np.linalg.norm(fv[:, 1] - fv[:, 0], axis=1)
+        cr = np.cross(fv[:, 1] - fv[:, 0], fv[:, 2] - fv[:, 0])
+        return 0.5 * np.linalg.norm(cr, axis=1)
+
+    def facet_outward_normals(self, facet_ids) -> np.ndarray:
+        """Unit normals pointing out of the adjacent cell.
+
+        For exterior facets this is the outward boundary normal; for
+        interior facets it is the normal seen from ``facet_cell``.
+        """
+        ids = np.asarray(facet_ids)
+        fv = self.points[self.facets[ids]]                 # (nf, dim, dim)
+        if self.dim == 2:
+            t = fv[:, 1] - fv[:, 0]
+            n = np.stack([t[:, 1], -t[:, 0]], axis=1)
+        else:
+            n = np.cross(fv[:, 1] - fv[:, 0], fv[:, 2] - fv[:, 0])
+        n /= np.linalg.norm(n, axis=1, keepdims=True)
+        # orient: away from the opposite vertex of the adjacent cell
+        cell = self.facet_cell[ids]
+        opp_local = self.facet_local_index[ids]
+        opp_vertex = self.points[self.cells[cell, opp_local]]
+        centroid = fv.mean(axis=1)
+        sign = np.sign(np.einsum("fd,fd->f", n, centroid - opp_vertex))
+        return n * sign[:, None]
+
     def mark_exterior_facets(self, predicate) -> np.ndarray:
         """Exterior facet ids whose vertices ALL satisfy ``predicate(x)``."""
         ext = self.exterior_facet_ids
@@ -180,3 +216,40 @@ def merge_markers(pieces) -> FacetMarkers:
     keep = len(facet_ids) - 1 - last
     keep.sort()
     return FacetMarkers(facet_ids[keep], values[keep])
+
+
+def extract_all_boundary_markers(mesh: SimplexMesh,
+                                 markers: FacetMarkers) -> set:
+    """Set of marker values present on *exterior* facets, including the
+    implicit 0 of unmarked exterior facets."""
+    ext = mesh.exterior_facet_ids
+    marked = dict(zip(markers.facet_ids.tolist(), markers.values.tolist()))
+    return {marked.get(int(f), 0) for f in ext}
+
+
+def boundary_normal(mesh: SimplexMesh, markers: FacetMarkers,
+                    bndry_id: int) -> tuple:
+    """Common outward unit normal of a flat marked boundary.
+
+    Checks (a) all facet normals are parallel and (b) midpoint connection
+    vectors are tangential; raises ValueError otherwise.
+    """
+    ids = markers.ids_with_value(bndry_id)
+    ids = ids[mesh.exterior_facet_mask[ids]]
+    if len(ids) == 0:
+        raise AssertionError("Boundary id is not marked in the mesh")
+    normals = mesh.facet_outward_normals(ids)
+    midpoints = mesh.facet_midpoints(ids)
+
+    tol = 1.0e3 * np.finfo(np.float64).eps
+    n0 = normals[0]
+    dots = normals @ n0
+    if np.any(dots <= 0.0) or np.any(np.abs(dots - 1.0) > tol):
+        raise ValueError("Boundary facets do not share common normal.")
+    connections = midpoints - midpoints[0]
+    if np.any(np.abs(connections @ n0)
+              > tol * (1.0 + np.abs(connections).max())):
+        raise ValueError(
+            "Midpoint connection vector is not tangential to boundary "
+            "facets.")
+    return tuple(float(c) for c in n0)

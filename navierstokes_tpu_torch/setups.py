@@ -1,12 +1,15 @@
-"""Benchmark initial states (counterpart of
-``__graft_entry__.py::_taylor_green_setup``)."""
+"""Benchmark setups: the periodic initial states (counterpart of
+``__graft_entry__.py::_taylor_green_setup``) and the wall-bounded boxes
+driven through the solver API (lid-driven cavity, channel)."""
 
 from __future__ import annotations
 
 import numpy as np
 
+from navierstokes_tpu_torch.fem.bcs import PressureBCType, VelocityBCType
 from navierstokes_tpu_torch.fem.spaces import TaylorHoodSpace, axis_periodic
-from navierstokes_tpu_torch.mesh import hyper_cube
+from navierstokes_tpu_torch.mesh import (HyperCubeBoundaryMarkers, hyper_cube,
+                                         hyper_rectangle)
 
 
 def taylor_green_setup(n_points, dim=2):
@@ -41,3 +44,40 @@ def taylor_green_setup(n_points, dim=2):
                                axis=1))
         p0 = space.interpolate_pressure(lambda x: np.zeros(len(x)))
     return space, u0, p0
+
+
+def _lid(x):
+    return np.stack([np.ones(len(x)), np.zeros(len(x))], axis=1)
+
+
+def lid_driven_cavity_setup(n):
+    """``(mesh, markers, bcs)`` of the lid-driven cavity on the unit square
+    with ``n`` cells per side: no slip on three walls, unit tangential
+    speed on the top lid, zero mean pressure (the boundary conditions of
+    ``benchmarks/cavity_re1000.py``)."""
+    M = HyperCubeBoundaryMarkers
+    mesh, markers = hyper_cube(2, n)
+    bcs = ((VelocityBCType.no_slip, M.left.value, None),
+           (VelocityBCType.no_slip, M.right.value, None),
+           (VelocityBCType.no_slip, M.bottom.value, None),
+           (VelocityBCType.function, M.top.value, _lid),
+           (PressureBCType.mean_value, None, 0.0))
+    return mesh, markers, bcs
+
+
+def parabolic_inlet(x, t=None):
+    """The steady Poiseuille profile u = (y (1 - y), 0)."""
+    return np.stack([x[:, 1] * (1 - x[:, 1]), np.zeros(len(x))], axis=1)
+
+
+def channel_setup(nx, ny, inlet=parabolic_inlet):
+    """``(mesh, markers, bcs)`` of the plane channel [0, 5] x [0, 1] with
+    ``nx`` x ``ny`` cells: the velocity ``inlet(x[, t])`` on the left, no
+    slip on bottom and top, zero pressure on the right outlet."""
+    M = HyperCubeBoundaryMarkers
+    mesh, markers = hyper_rectangle((0.0, 0.0), (5.0, 1.0), (nx, ny))
+    bcs = ((VelocityBCType.function, M.left.value, inlet),
+           (VelocityBCType.no_slip, M.bottom.value, None),
+           (VelocityBCType.no_slip, M.top.value, None),
+           (PressureBCType.constant, M.right.value, 0.0))
+    return mesh, markers, bcs

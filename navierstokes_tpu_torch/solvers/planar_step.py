@@ -4,10 +4,13 @@
 Incremental pressure-correction scheme in the planar velocity layout
 ``(dim, n_unodes)``: extrapolated convection, a velocity Helmholtz solve,
 an incremental pressure Poisson solve and a mass-matrix velocity
-correction, each a fixed-iteration Jacobi-PCG.  With circulant operators
-and no tolerance, each solve is one launch of the CUDA kernel
-``cuda_band.circulant_pcg`` on CUDA tensors (its plain torch version on
-CPU tensors); every band matvec outside the solves goes through
+correction, each a Jacobi-PCG (the Poisson solve optionally preconditioned
+by an AMG V-cycle, ``build_poisson_amg``).  With circulant operators, no
+tolerance and no preconditioner, each solve is one launch of the CUDA
+kernel ``cuda_band.circulant_pcg`` on CUDA tensors (its plain torch
+version on CPU tensors); with a tolerance (``cg_rtol``) the loop runs in
+torch and reads the residual norm on the host once per iteration.  Every
+band matvec outside the whole-solve kernel goes through
 ``cuda_band.circulant_apply``.
 
 State vectors live in the engine's permuted node numbering.
@@ -200,6 +203,54 @@ def _step_core(ops: PlanarOps, masks, u, u_old, p, phi, alpha, eta,
     return u_new, p_new, phi_new
 
 
+def build_poisson_amg(fast, pres_bc_mask=None, **amg_kwargs):
+    """AMG V-cycle preconditioner for the planar step's pressure Poisson,
+    in the engine's permuted P1 numbering, on the engine's device.
+
+    Fixed Jacobi-CG sweeps on the Poisson solve degrade as O(1/h) where an
+    AMG V-cycle holds the iteration count h-independent.  Setup is
+    host-side SciPy (once per mesh).
+
+    ``pres_bc_mask``: permuted boolean mask of prescribed-pressure nodes
+    (same convention as ``build_planar_projection_step``); ``None`` =
+    enclosed flow: the unshifted semidefinite Laplacian, whose coarsest
+    level is a pseudo-inverse while the outer CG's mean-free projection
+    keeps everything in the SPD subspace.
+    """
+    import numpy as np
+
+    from navierstokes_tpu_torch.linalg.amg import (AMG,
+                                                   pressure_laplacian_scipy)
+
+    perm = np.asarray(fast.permP)
+    dofs = None
+    if pres_bc_mask is not None:
+        dofs = perm[np.where(np.asarray(pres_bc_mask))[0]]
+    A = pressure_laplacian_scipy(fast.space, dirichlet_dofs=dofs)
+    amg_kwargs.setdefault("dtype", fast.dtype)
+    amg = AMG(A[perm][:, perm], device=fast.device, **amg_kwargs)
+
+    # the V-cycle's level-0 matvec (smoother + residual) dominates its
+    # cost; route it through the banded operator (the band kernel on the
+    # card) instead of the gather table -- identical matrix
+    if amg.levels:
+        if pres_bc_mask is not None:
+            m = torch.as_tensor(np.asarray(pres_bc_mask), device=fast.device)
+            p_free = torch.where(m.to(torch.bool), 0.0, 1.0).to(
+                amg.levels[0]["dinv"].dtype)
+
+            def mv(v):
+                return p_free * fast.L.apply(p_free * v) + (1.0 - p_free) * v
+        else:
+            mv = fast.L.apply
+
+        class _Banded0:
+            matvec = staticmethod(mv)
+
+        amg.levels[0]["A"] = _Banded0()
+    return amg
+
+
 def build_planar_projection_step(fast, *, visc, dt, cg_iters=(12, 45, 8),
                                  vel_bc=None, pres_bc_mask=None,
                                  conv_coeff=1.0, cg_rtol=None,
@@ -223,21 +274,28 @@ def build_planar_projection_step(fast, *, visc, dt, cg_iters=(12, 45, 8),
     velocity Dirichlet data), ``k`` (step size; defaults to ``dt``),
     ``body_rhs`` (pre-assembled velocity load).
 
-    ``poisson_precond``: ``None`` (Jacobi) or a callable ``r -> z`` in
-    permuted pressure numbering; ``"amg"`` is not ported yet.
+    ``poisson_precond``: ``None`` (Jacobi), ``"amg"`` (build an AMG
+    V-cycle via :func:`build_poisson_amg`; needs the engine, not a bare
+    ``PlanarOps``), or any callable ``r -> z`` in permuted pressure
+    numbering.
     """
     if poisson_precond == "amg":
-        raise NotImplementedError("poisson_precond='amg' is not ported yet")
+        if isinstance(fast, PlanarOps):
+            raise TypeError("poisson_precond='amg' needs a FastTaylorHood "
+                            "engine: a PlanarOps bundle carries no space")
+        poisson_precond = build_poisson_amg(fast, pres_bc_mask).apply
     ops = fast if isinstance(fast, PlanarOps) else fast.ops
     dtype, device = ops.diag_m.dtype, ops.diag_m.device
 
+    # contiguous: the masks go to the band kernels as they are
     def free(mask):
         m = torch.as_tensor(mask, device=device)
-        return torch.where(m.to(torch.bool), 0.0, 1.0).to(dtype)
+        return torch.where(m.to(torch.bool), 0.0, 1.0).to(dtype).contiguous()
 
     if vel_bc is not None:
         v_free = free(vel_bc[0])
-        v_vals = torch.as_tensor(vel_bc[1], dtype=dtype, device=device)
+        v_vals = torch.as_tensor(vel_bc[1], dtype=dtype,
+                                 device=device).contiguous()
     else:
         v_free = v_vals = None
     p_free = None if pres_bc_mask is None else free(pres_bc_mask)

@@ -29,6 +29,8 @@ F32, F64 = torch.float32, torch.float64
 VELOCITY_128 = (65_536, 23, 2)      # P2 nodes of 128^2, M/K band, 2 planes
 POISSON_128 = (16_384, 9, 1)        # P1 nodes of 128^2, L band
 VELOCITY_512 = (1_048_576, 23, 2)
+CAVITY_VELOCITY_128 = (66_049, 19, 2)   # wall-bounded 128^2: odd N, K = 19
+CAVITY_POISSON_128 = (16_641, 7, 1)
 
 
 @pytest.mark.parametrize("shape,dtype,has_mask,route,ctas,resident", [
@@ -41,9 +43,17 @@ VELOCITY_512 = (1_048_576, 23, 2)
     (VELOCITY_512, F32, False, "grid", 132, False),
     ((4096, 9, 2), F32, True, "cluster", 16, True),
     ((65_536, 9, 1), F32, False, "grid", 64, True),
+    # the lid-driven cavity: 2,048 rows per CTA in f32 (7 of the 16 CTAs
+    # own no row); in f64 the state no longer fits a cluster
+    (CAVITY_POISSON_128, F32, False, "cluster", 16, True),
+    (CAVITY_POISSON_128, F64, False, "grid", 17, True),
+    (CAVITY_VELOCITY_128, F32, True, "grid", 130, True),
+    (CAVITY_VELOCITY_128, F64, True, "grid", 130, True),
 ], ids=["poisson-f32", "poisson-f64", "poisson-masked-f32",
         "velocity-f32", "velocity-f64", "velocity-masked-f32",
-        "velocity512-f32", "small-masked", "poisson256-f32"])
+        "velocity512-f32", "small-masked", "poisson256-f32",
+        "cavity-poisson-f32", "cavity-poisson-f64",
+        "cavity-velocity-masked-f32", "cavity-velocity-masked-f64"])
 def test_pcg_plan_routes(shape, dtype, has_mask, route, ctas, resident):
     n, K, batch = shape
     plan = cuda_band.pcg_plan(n, K, batch, dtype, has_mask)

@@ -114,12 +114,14 @@ def test_planar_ops_round_trip(engines):
 
 
 def test_meshes_not_ported_yet_raise():
-    """Non-periodic meshes need AffineBand / the rim formats, and the 3D
-    engine is a later slice: both refuse instead of building something
-    else."""
+    """Operators that are not circulant under the lexicographic order need
+    the RCM ordering, and the 3D engine is not ported yet: both refuse
+    instead of building something else, naming their ROADMAP item.  (A
+    wall-bounded box is circulant there and builds: test_torch_rim.py.)"""
     mesh, _ = hyper_rectangle((0.0, 0.0), (2.0, 1.0), (12, 6))
-    with pytest.raises(NotImplementedError):
-        tfo.FastTaylorHood(TaylorHoodSpace(mesh), device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP item 5a-RCM"):
+        tfo.FastTaylorHood(TaylorHoodSpace(mesh), device="cpu",
+                           circulant_cap=4)
     mesh, _ = hyper_cube(3, 2)
-    with pytest.raises(NotImplementedError, match="3D"):
+    with pytest.raises(NotImplementedError, match="ROADMAP item 5d"):
         tfo.FastTaylorHood(TaylorHoodSpace(mesh), device="cpu")

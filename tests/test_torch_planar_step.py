@@ -108,11 +108,26 @@ def test_step_matches_jax(n, case):
 
 
 def test_amg_poisson_is_not_ported():
+    """(The name dates from when ``poisson_precond="amg"`` raised.)  It
+    builds a V-cycle now: on an engine the step takes the preconditioned,
+    tolerance-controlled ``_pcg`` and converges the Poisson solve in a few
+    iterations; a bare ``PlanarOps`` bundle, which carries no space to
+    build the hierarchy from, is refused."""
     from navierstokes_tpu_torch.assembly.fastop import FastTaylorHood
     from navierstokes_tpu_torch.setups import taylor_green_setup
 
-    space, _, _ = taylor_green_setup(8)
-    with pytest.raises(NotImplementedError, match="amg"):
-        build_planar_projection_step(FastTaylorHood(space, device="cpu"),
-                                     visc=0.01, dt=1e-3,
+    space, u0, p0 = taylor_green_setup(8)
+    fast = FastTaylorHood(space, device="cpu")
+    step = build_planar_projection_step(
+        fast, visc=0.01, dt=1e-3, cg_iters=(20, 12, 10), cg_rtol=1e-10,
+        with_residuals=True, poisson_precond="amg")
+    assert callable(step.static["p_precond"])
+    u = fast.permute_velocity(torch.tensor(u0.T))
+    p = fast.permute_pressure(torch.tensor(p0))
+    _, _, _, res = step(u, u, p, torch.zeros_like(p), ALPHAS[0], ETAS[0])
+    # stopped by the tolerance (1e-10 |b|) inside the 12 iterations
+    assert float(res[1]) < 1e-8
+    assert cuda_band.LAUNCHES == {"circulant_apply": 0, "circulant_pcg": 0}
+    with pytest.raises(TypeError, match="engine"):
+        build_planar_projection_step(fast.ops, visc=0.01, dt=1e-3,
                                      poisson_precond="amg")

@@ -133,6 +133,18 @@ def test_port_imports_no_jax():
             "import navierstokes_tpu_torch.structured\n"
             "import navierstokes_tpu_torch.structured.spectral\n"
             "import navierstokes_tpu_torch.timestepping\n"
+            "import navierstokes_tpu_torch.fem.bcs\n"
+            "import navierstokes_tpu_torch.fem.dirichlet\n"
+            "import navierstokes_tpu_torch.problems\n"
+            "import navierstokes_tpu_torch.utils\n"
+            "import navierstokes_tpu_torch.utils.segment\n"
+            "import navierstokes_tpu_torch.linalg.krylov\n"
+            "import navierstokes_tpu_torch.linalg.amg\n"
+            "import navierstokes_tpu_torch.assembly.kernels\n"
+            "import navierstokes_tpu_torch.assembly.operators\n"
+            "import navierstokes_tpu_torch.solvers\n"
+            "import navierstokes_tpu_torch.solvers.projection\n"
+            "import navierstokes_tpu_torch.io\n"
             "assert 'jax' not in sys.modules, 'jax imported'\n"
             "assert 'navierstokes_tpu' not in sys.modules\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
