@@ -12,8 +12,9 @@ non-zero):
 3. kernels  -- hold each kernel against its plain torch version on the
                card (f32 and f64): the apply on its cases, the PCG on both
                routes (cluster, and grid with a resident and a streamed
-               band; masked and mean-free cases on each), with each case's
-               route.
+               band; masked and mean-free cases on each; two planes,
+               masked and not, on the cluster route in both dtypes), with
+               each case's route.
 4. main     -- the generic banded SBDF-2 projection step on the periodic
                Taylor-Green vortex at 128^2, f32, configured as bench.py's
                generic path: Re = 100, dt = 1e-3, cg_iters = (10, 60, 6),
@@ -85,20 +86,46 @@ non-zero):
                trip on the card: save after 3 variable steps, load into a
                fresh solver, 3 more steps equal the unbroken run bit for
                bit.
-15. the ``kernels`` line, then the card's nvidia-smi line, then the last
-   line ``{"ok": true, "device": {...}}``.
+15. problem_cavity -- the cavity of solver_cavity as an application: an
+               InstationaryProblem subclass run by solve_problem() (CFL
+               every step, vorticity added to the field output, PVD output
+               every 50 steps into a temporary directory), 200 timed steps.
+               Requires step_kind "fast", the lid and wall guards, the
+               expected output files and circulant_apply launches; prints
+               ms/step beside solver_cavity's, ms per output write, host
+               syncs per step and the problem's stdout line count.
+16. dfg     -- DFG 2D-2 (Schafer-Turek, Re = 100) at resolution 3 (75,509
+               DoFs, every square operator an AffineBand under the RCM
+               order), f32, through a mirror of the JAX package's demo
+               class, seeded by io/checkpoint from a saturated state of the
+               same mesh: 1,400 steps of dt = 0.005 with the reaction force
+               on the card every step, read once at the end.  Requires
+               finite forces and, over the last 5 time units, c_D,max in
+               [3.15, 3.30], c_L,max in [0.90, 1.05] and a Strouhal number
+               (harmonic fit of c_L) in [0.285, 0.315]; prints ms/step,
+               DoF-steps/s, the busy share, every operator's format and
+               bytes, the AMG levels and the iterations per solve.
+17. dfg_parity -- the same application at resolution 1, f64: 10 steps
+               from a checkpoint the CPU writes after 40 steps from rest,
+               on the card twice and on the CPU: u, p and the force series
+               agree to 1e-12 relative in the max-norm and in the 2-norm,
+               and the two card runs bit for bit.
+18. the total seconds, the ``kernels`` line, then the card's nvidia-smi
+   line, then the last line ``{"ok": true, "device": {...}}``.
 
 ``--profile DIR`` also writes a torch.profiler table of 10 steps of each
-path (banded, structured 2D, structured 3D, solver cavity) to DIR.
-``--phases LIST`` runs only the named groups (``kernels``, ``structured``,
-``solver``; the device and build phases always run) and then prints no
-``kernels`` line.  ``--baseline DIR``
+path (banded, structured 2D, structured 3D, solver cavity, problem cavity,
+DFG) to DIR.  ``--phases LIST`` runs only the named groups (``kernels``,
+``structured``, ``solver``, ``problems``; the device and build phases
+always run) and then prints no ``kernels`` line.  ``--baseline DIR``
 also times the kernels of another checkout of this repository (its ``navierstokes_tpu_torch``, built from its own
 source) on the same inputs in the same process, in the order baseline,
 this, this, baseline.
 """
 
 import argparse
+import contextlib
+import io
 import json
 import math
 import os
@@ -107,8 +134,10 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 
 import numpy as np
+import scipy
 import torch
 
 from navierstokes_tpu_torch.assembly import cuda_band
@@ -116,15 +145,17 @@ from navierstokes_tpu_torch.assembly.fastop import (FastTaylorHood,
                                                     combine_circulant,
                                                     planar_ops_from_numpy,
                                                     planar_ops_to_numpy)
-from navierstokes_tpu_torch.fem.bcs import PressureBCType
+from navierstokes_tpu_torch.fem.bcs import PressureBCType, VelocityBCType
 from navierstokes_tpu_torch.fem.spaces import axis_periodic
 from navierstokes_tpu_torch.io import load_checkpoint, save_checkpoint
-from navierstokes_tpu_torch.mesh import hyper_cube
+from navierstokes_tpu_torch.mesh import channel_with_cylinder, hyper_cube
+from navierstokes_tpu_torch.problems import (EquationCoefficientHandler,
+                                             InstationaryProblem)
 from navierstokes_tpu_torch.setups import (channel_setup,
                                            lid_driven_cavity_setup,
                                            parabolic_inlet,
                                            taylor_green_setup)
-from navierstokes_tpu_torch.solvers import ProjectionSolver
+from navierstokes_tpu_torch.solvers import ProjectionSolver, planar_step
 from navierstokes_tpu_torch.solvers.planar_step import \
     build_planar_projection_step
 from navierstokes_tpu_torch.structured import (PeriodicStructuredTH,
@@ -211,27 +242,29 @@ def device_ms(fn):
     """Device-only time of ``fn`` in ms: the band kernels' time in a
     torch.profiler trace of PROFILE_LAUNCHES calls, over the number of
     kernel records in the trace (one per call; a long process can lose
-    records, so the trace's own count is the divisor, and a trace with
-    fewer than half of the launches is refused)."""
+    records, so the trace's own count is the divisor, a trace with fewer
+    than half of the launches is taken again, and the third such trace is
+    refused)."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(PROFILE_LAUNCHES):
-            fn()
-        torch.cuda.synchronize()
-    total, records = 0.0, 0
-    for e in prof.key_averages():
-        if "circulant_" in e.key:
-            total += getattr(e, "self_device_time_total", None) or \
-                getattr(e, "self_cuda_time_total", 0.0)
-            records += e.count
-    if total <= 0.0 or 2 * records < PROFILE_LAUNCHES:
-        raise RuntimeError(f"torch.profiler recorded {records} of "
-                           f"{PROFILE_LAUNCHES} kernel launches")
-    return total / records / 1e3
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(PROFILE_LAUNCHES):
+                fn()
+            torch.cuda.synchronize()
+        total, records = 0.0, 0
+        for e in prof.key_averages():
+            if "circulant_" in e.key:
+                total += getattr(e, "self_device_time_total", None) or \
+                    getattr(e, "self_cuda_time_total", 0.0)
+                records += e.count
+        if total > 0.0 and 2 * records >= PROFILE_LAUNCHES:
+            return total / records / 1e3
+    raise RuntimeError(f"torch.profiler recorded {records} of "
+                       f"{PROFILE_LAUNCHES} kernel launches, three times")
 
 
 def bound(bytes_moved, flops, dtype):
@@ -277,6 +310,8 @@ def spd_case(kind, dtype, dev, n=4096, W=128):
     band = np.full((len(offs), n), -1.0)
     band[offs.index(0)] = 2.0 * len(offs)
     shape, maskv, meanfree = (n,), 1.0, False
+    if kind == "batch2":
+        shape = (2, n)
     if kind == "masked":
         shape = (2, n)
         fixed = np.zeros(shape, bool)
@@ -366,7 +401,8 @@ def phase_device():
     kind = torch.cuda.get_device_name(0)
     emit({"phase": "device", "kind": kind, "nvidia_smi": smi,
           "count": torch.cuda.device_count(), "torch": torch.__version__,
-          "cuda": torch.version.cuda, "python": sys.version.split()[0]})
+          "cuda": torch.version.cuda, "python": sys.version.split()[0],
+          "numpy": np.__version__, "scipy": scipy.__version__})
     return smi, kind
 
 
@@ -479,7 +515,7 @@ def phase_pcg(st):
     those f32 sub-solves)."""
     cases = [(f"{k}_n{n}", spd_case(k, dtype, st.dev, n=n, W=W), dtype)
              for n, W in ((4096, 128), (65536, 256))
-             for k in ("plain", "masked", "meanfree")
+             for k in ("plain", "batch2", "masked", "meanfree")
              for dtype in (torch.float32, torch.float64)]
     cases.append(("streamed_n1048576", streamed_case(torch.float32, st.dev),
                   torch.float32))
@@ -515,14 +551,22 @@ def phase_pcg(st):
         if name.endswith(f"_{N_POINTS}") and dtype == torch.float32:
             err_main = max(err_main, abs_err(x, x_ref))
         masked, meanfree = torch.is_tensor(case[5]), bool(case[7])
+        planes = case[2].numel() // case[0].shape[1]
         seen |= {(route, str(dtype)), (route, "masked" if masked else
-                                       "meanfree" if meanfree else "plain")}
+                                       "meanfree" if meanfree else "plain"),
+                 (route, f"B{planes}", "masked" if masked else "unmasked",
+                  str(dtype))}
         report.append({"case": name, "dtype": str(dtype), "route": route,
-                       "rel_err": err, "res": rn, "res_plain": rn_ref})
+                       "planes": planes, "rel_err": err, "res": rn,
+                       "res_plain": rn_ref})
+    # route A with two planes in both dtypes, masked and not: the block
+    # size band.cu pins (kClusterThreads) is the one these cases run
     need = {("cluster", "torch.float32"), ("cluster", "torch.float64"),
             ("grid", "torch.float32"), ("grid", "torch.float64"),
             ("grid-streamed", "torch.float32"), ("cluster", "masked"),
             ("cluster", "meanfree"), ("grid", "masked"), ("grid", "meanfree")}
+    need |= {("cluster", "B2", m, str(dt)) for m in ("masked", "unmasked")
+             for dt in (torch.float32, torch.float64)}
     if need - seen:
         raise AssertionError(f"routes not exercised: {sorted(need - seen)}")
     for dtype in (torch.float32, torch.float64):
@@ -1221,12 +1265,19 @@ def phase_solver_cavity_kernels(dev, smi):
         if not err <= 1e-6:
             raise AssertionError(f"circulant_apply {name} at the cavity's "
                                  f"shape: rel err {err} > 1e-6")
+        A, xT = csr_of(op), x.t().contiguous()
+        lib_err = rel_err(torch.sparse.mm(A, xT).t(), call())
+        if not lib_err <= 1e-6:
+            raise AssertionError(f"torch.sparse.mm disagrees at {name}: "
+                                 f"{lib_err}")
         b_ms, b_by = bound(*apply_work(len(op.offsets), op.n, batch, 4),
                            torch.float32)
         applies[name] = {"K": len(op.offsets), "n": op.n, "rel_err": err,
                          "ms": time_ms(call), "device_ms": device_ms(call),
                          "plain_ms": time_ms(plain), "bound_ms": b_ms,
-                         "bound_by": b_by}
+                         "bound_by": b_by,
+                         "library_ms": time_ms(
+                             lambda a=A, v=xT: torch.sparse.mm(a, v))}
     emit({"phase": "solver_cavity_kernels",
           "config": f"lid-driven cavity {n}^2 f32, cg_rtol None, no "
                     f"preconditioner, cg_iters {SOLVER['kernel_cg_iters']}",
@@ -1375,7 +1426,512 @@ def phase_solver_parity(dev):
                              "the unbroken one")
 
 
-GROUPS = ("kernels", "structured", "solver")
+# ---------------------------------------------------------------------------
+# the application layer: Problem classes, postprocessing, field output
+# ---------------------------------------------------------------------------
+
+# problem_cavity mirrors solver_cavity as an application; dfg is DFG 2D-2
+# (Schafer-Turek, Re = 100) at resolution 3 seeded from a saturated state
+# of the JAX package's monolithic solver on the same (symmetric) mesh;
+# dfg_parity is the same application at resolution 1 in f64.
+PROBLEMS = {"cavity_n": 128, "cavity_steps": 200, "output_every": 50,
+            "dfg_res": 3.0, "dfg_dt": 0.005, "dfg_steps": 1400,
+            "dfg_window": 5.0, "dfg_print_every": 200,
+            "dfg_seed": "benchmarks/states/dfg_2d2_state_mono_res3_sym.npz",
+            "dfg_dofs": (67008, 8501), "parity_res": 1.0,
+            "parity_warm_steps": 40, "parity_steps": 10}
+# literature 3.22-3.24 / 0.99-1.01 / 0.295-0.305 (Schafer & Turek 1996);
+# the JAX package's projection chain gives 3.2163-3.2233 / 0.970 / 0.3000
+DFG_GUARDS = {"cd_max": (3.15, 3.30), "cl_max": (0.90, 1.05),
+              "strouhal": (0.285, 0.315)}
+H_DFG = 4.1
+
+
+class DFGBenchmark2D2Projection(InstationaryProblem):
+    """DFG 2D-2 on the projection path: the port's mirror of
+    demo/dfg_benchmark_projection.py's class (steady parabolic inflow,
+    Re = 100, the reaction force on the cylinder kept on the device every
+    step and read once at the end)."""
+
+    def __init__(self, main_dir=None, end_time=80.0, n_max_steps=16000,
+                 resolution=1.8, dt=0.005, print_every=200, **kw):
+        super().__init__(main_dir, start_time=0.0, end_time=end_time,
+                         desired_start_time_step=dt,
+                         n_max_steps=n_max_steps, **kw)
+        self._problem_name = type(self).__name__
+        self._resolution = resolution
+        self._output_frequency = 0
+        self._postprocessing_frequency = 1
+        self._cfl_frequency = 200       # monitoring only (non-adaptive)
+        self._print_every = print_every
+        self.set_solver_class(ProjectionSolver)
+        self.coefficients = []
+        self._force_series = []         # device tensors, read at the end
+
+    def setup_mesh(self):
+        self._mesh, self._boundary_markers, self._boundary_marker_map = \
+            channel_with_cylinder(self._resolution)
+
+    def set_initial_conditions(self):
+        self._initial_conditions = {"velocity": (0.0, 0.0)}
+
+    def set_boundary_conditions(self):
+        def inlet_velocity(x, t=0.0):
+            s = x[:, 1] / H_DFG
+            return np.stack([6.0 * s * (1.0 - s), np.zeros(len(x))], axis=1)
+
+        bm = self._boundary_marker_map
+        self._bcs = ((VelocityBCType.function, bm["inlet"], inlet_velocity),
+                     (VelocityBCType.no_slip, bm["cylinder"], None),
+                     (VelocityBCType.no_slip, bm["upper wall"], None),
+                     (VelocityBCType.no_slip, bm["lower wall"], None),
+                     (PressureBCType.constant, bm["outlet"], 0.0))
+
+    def set_equation_coefficients(self):
+        self._coefficient_handler = EquationCoefficientHandler(Re=100.0)
+
+    def postprocess_solution(self):
+        solver = self._get_solver()
+        force = solver.boundary_reaction_force(
+            self._boundary_marker_map["cylinder"])
+        self._force_series.append((self._time_stepping.next_time, force))
+        if self._time_stepping.step_number % self._print_every == 0:
+            t, force = self._force_series[-1]
+            print(f"t={t:8.3f}  c_D={2 * float(force[0]):8.4f}  "
+                  f"c_L={2 * float(force[1]):8.4f}", flush=True)
+
+    def materialize_coefficients(self):
+        """The force series as (t, c_D, c_L) rows, in one transfer."""
+        if self._force_series:
+            forces = torch.stack([f for _, f in self._force_series])
+            forces = forces.double().cpu().numpy()
+            times = [t for t, _ in self._force_series]
+            self.coefficients += [(t, 2.0 * f[0], 2.0 * f[1])
+                                  for t, f in zip(times, forces)]
+            self._force_series = []
+        return self.coefficients
+
+
+class CavityProblem(InstationaryProblem):
+    """The lid-driven cavity of solver_cavity as an application: CFL every
+    step (the reference default), vorticity added to the field output."""
+
+    def __init__(self, main_dir, n, n_steps, output_every, **kw):
+        super().__init__(main_dir, start_time=0.0, end_time=1.0e6,
+                         desired_start_time_step=0.25 / (2.0 * n),
+                         n_max_steps=n_steps, **kw)
+        self._output_format = "pvd"
+        self._problem_name = "cavity"
+        self._n = n
+        self._output_frequency = output_every
+        self._postprocessing_frequency = output_every
+        self.set_solver_class(ProjectionSolver)
+
+    def setup_mesh(self):
+        self._mesh, self._boundary_markers, self._cavity_bcs = \
+            lid_driven_cavity_setup(self._n)
+
+    def set_boundary_conditions(self):
+        self._bcs = self._cavity_bcs
+
+    def set_equation_coefficients(self):
+        self._coefficient_handler = EquationCoefficientHandler(
+            Re=SOLVER["re"])
+
+    def set_initial_conditions(self):
+        self._initial_conditions = {"velocity": (0.0, 0.0)}
+
+    def postprocess_solution(self):
+        self._add_to_field_output(self._compute_vorticity())
+
+
+class Instrumented:
+    """Mixin for a Problem: the host clock over steps ``warm`` ..
+    ``warm + steps`` of the time loop (synchronised at both ends), the
+    time of each field-output write, and a torch.profiler window over the
+    ``profile`` steps after that, in which the matvecs of every _pcg call
+    are counted (iterations per solve)."""
+
+    def instrument(self, warm, steps, profile):
+        self._clock = {"warm": warm, "steps": steps, "profile": profile,
+                       "writes": [], "t0": None, "t1": None, "prof": None,
+                       "iters": []}
+        self._n_max_steps = warm + steps + profile
+
+    def _set_next_step_size(self):
+        c, k = self._clock, self._time_stepping.step_number
+        if k == c["warm"]:
+            torch.cuda.synchronize()
+            c["t0"] = time.perf_counter()
+        elif k == c["warm"] + c["steps"]:
+            torch.cuda.synchronize()
+            c["t1"] = time.perf_counter()
+            self._start_profile()
+        super()._set_next_step_size()
+
+    def _start_profile(self):
+        from torch.profiler import ProfilerActivity, profile
+
+        c = self._clock
+        launch = planar_step._pcg
+
+        def counted(matvec, *args, **kw):
+            calls = [0]
+
+            def mv(v):
+                calls[0] += 1
+                return matvec(v)
+
+            out = launch(mv, *args, **kw)
+            c["iters"].append(calls[0] - 1)
+            return out
+
+        c["pcg"] = launch
+        planar_step._pcg = counted
+        c["prof"] = profile(activities=[ProfilerActivity.CPU,
+                                        ProfilerActivity.CUDA])
+        c["prof"].__enter__()
+
+    def finish_profile(self):
+        """Close the profiler window; its per-step figures."""
+        from torch.autograd import DeviceType
+
+        c = self._clock
+        torch.cuda.synchronize()
+        c["prof"].__exit__(None, None, None)
+        planar_step._pcg = c["pcg"]
+        device, launches, syncs = 0.0, 0, 0
+        for e in c["prof"].key_averages():
+            if e.device_type == DeviceType.CUDA:
+                device += getattr(e, "self_device_time_total", None) or \
+                    getattr(e, "self_cuda_time_total", 0.0)
+                launches += e.count
+            if e.key == "aten::_local_scalar_dense":
+                syncs += e.count
+        n = c["profile"]
+        iters = np.asarray(c["iters"]).reshape(n, -1)
+        return {"steps": n, "device_ms_per_step": device / n / 1e3,
+                "device_ops_per_step": launches / n,
+                "host_syncs_per_step": syncs / n,
+                "iterations_per_solve_mean": iters.mean(axis=0).tolist(),
+                "iterations_per_solve_max": iters.max(axis=0).tolist()}
+
+    def write_profile_table(self, smi, profile_dir, filename, title):
+        """The profiler window as a table (as write_profile writes)."""
+        os.makedirs(profile_dir, exist_ok=True)
+        table = self._clock["prof"].key_averages().table(
+            sort_by="cuda_time_total", row_limit=40)
+        with open(os.path.join(profile_dir, filename), "w") as f:
+            f.write(f"{smi}\n{self._clock['profile']} steps, {title}\n"
+                    f"{table}")
+
+    def _write_xdmf_file(self, current_time=0.0):
+        t0 = time.perf_counter()
+        super()._write_xdmf_file(current_time)
+        self._clock["writes"].append(time.perf_counter() - t0)
+
+    def ms_per_step(self):
+        c = self._clock
+        return 1e3 * (c["t1"] - c["t0"]) / c["steps"]
+
+
+class InstrumentedCavity(Instrumented, CavityProblem):
+    pass
+
+
+class InstrumentedDFG(Instrumented, DFGBenchmark2D2Projection):
+    pass
+
+
+def run_quietly(problem):
+    """``problem.solve_problem()`` with its per-step printing sent to a
+    buffer; returns the number of lines it printed."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        problem.solve_problem()
+    return buf.getvalue().count("\n")
+
+
+def output_files(directory):
+    """The field-output files under ``directory``: names and total bytes."""
+    files = sorted(os.listdir(directory))
+    return {"files": len(files), "bytes": sum(
+        os.path.getsize(os.path.join(directory, f)) for f in files),
+        "formats": sorted({os.path.splitext(f)[1] for f in files})}
+
+
+def phase_problem_cavity(dev, smi, cavity_ms, profile_dir):
+    """The cavity as an application; returns its launch counts."""
+    n, n_steps = PROBLEMS["cavity_n"], PROBLEMS["cavity_steps"]
+    with tempfile.TemporaryDirectory() as tmp:
+        problem = InstrumentedCavity(
+            tmp, n, 0, PROBLEMS["output_every"], device=dev,
+            dtype=torch.float32,
+            solver_options={"cg_rtol": SOLVER["cg_rtol"]})
+        problem.instrument(N_WARMUP, n_steps, N_BUSY)
+        cuda_band.reset_launch_counts()
+        t0 = time.perf_counter()
+        lines = run_quietly(problem)
+        busy = problem.finish_profile()
+        total = time.perf_counter() - t0
+        launches = dict(cuda_band.LAUNCHES)
+        out = output_files(os.path.join(tmp, "results"))
+        solver = problem._get_solver()
+        guards = cavity_guards(solver, "problem_cavity")
+        if profile_dir:
+            problem.write_profile_table(smi, profile_dir,
+                                        "profile_problem_cavity.txt",
+                                        f"lid-driven cavity {n}^2 f32, "
+                                        "application")
+    ms = problem.ms_per_step()
+    writes = problem._clock["writes"]
+    steps = N_WARMUP + n_steps + N_BUSY
+    emit({"phase": "problem_cavity",
+          "config": f"lid-driven cavity {n}^2 f32 as an InstationaryProblem"
+                    f": Re {SOLVER['re']:g}, ProjectionSolver, amg, cg_rtol "
+                    f"{SOLVER['cg_rtol']:g}, CFL every step, vorticity and "
+                    f"PVD output every {PROBLEMS['output_every']} steps",
+          "step_kind": solver._step_kind, "n_dofs": solver.space.n_dofs,
+          "steps_timed": n_steps, "ms_per_step": ms,
+          "dof_steps_per_s": 1e3 * solver.space.n_dofs / ms,
+          "solver_cavity_ms_per_step": cavity_ms,
+          "application_ms_per_step": None if cavity_ms is None
+          else ms - cavity_ms,
+          "output_writes": len(writes),
+          "output_ms_per_write": 1e3 * statistics.mean(writes),
+          "output": out, "busy": dict(busy, busy_share=busy[
+              "device_ms_per_step"] / ms),
+          "launches_per_step": {k: v / steps for k, v in launches.items()},
+          "stdout_lines": lines, "guards": guards,
+          "seconds_total": total,
+          "setup_seconds": setup_seconds(solver), "nvidia_smi": smi})
+    if solver._step_kind != "fast":
+        raise AssertionError(f"problem_cavity: step_kind "
+                             f"{solver._step_kind!r}")
+    if len(writes) != 1 + (N_WARMUP + n_steps + N_BUSY) \
+            // PROBLEMS["output_every"] or out["formats"] != [".pvd", ".vtu"]:
+        raise AssertionError(f"problem_cavity: {len(writes)} writes, "
+                             f"files {out}")
+    if launches["circulant_apply"] <= 0:
+        raise AssertionError("problem_cavity launched no circulant_apply")
+    return launches
+
+
+def dfg_seeded_solver(seed_path, ckpt_path):
+    """A ProjectionSolver class that starts from the saturated state in
+    ``seed_path`` (the JAX package's dof order, which the port's space
+    shares): ``set_initial_conditions`` takes the hook's (zero) data, then
+    loads a checkpoint written from the state with io/checkpoint."""
+
+    class Seeded(ProjectionSolver):
+        def set_initial_conditions(self, initial_conditions):
+            super().set_initial_conditions(initial_conditions)
+            with np.load(seed_path) as d:
+                u, u_old, p = d["u"], d["u_old"], d["p"]
+            space = self.space
+            want = PROBLEMS["dfg_dofs"]
+            if (space.n_velocity_dofs, space.n_pressure_dofs) != want \
+                    or (len(u), len(p)) != want:
+                raise AssertionError(
+                    f"dfg seed: space ({space.n_velocity_dofs}, "
+                    f"{space.n_pressure_dofs}), state ({len(u)}, {len(p)}),"
+                    f" expected {want}")
+            x, x_old = np.concatenate([u, p]), np.concatenate([u_old, p])
+            state = types.SimpleNamespace(
+                _solutions=[x, x_old, x_old], _u=u, _u_old=u_old,
+                _u_old2=u_old, _p=p, _phi=np.zeros_like(p))
+            save_checkpoint(ckpt_path, state, self._time_stepping)
+            load_checkpoint(ckpt_path, self, self._time_stepping)
+
+    return Seeded
+
+
+def crossing_frequency(t, y):
+    """Frequency of ``y`` from the mean spacing of the sign changes of
+    y - mean(y), each located by linear interpolation."""
+    yc = y - y.mean()
+    i = np.nonzero(np.signbit(yc[:-1]) != np.signbit(yc[1:]))[0]
+    tc = t[i] - yc[i] * (t[i + 1] - t[i]) / (yc[i + 1] - yc[i])
+    if len(tc) < 2:
+        raise AssertionError("dfg: c_L changes sign fewer than twice")
+    return 0.5 / float(np.mean(np.diff(tc)))
+
+
+def dfg_summary(coefficients, window):
+    """Raw window maxima of c_D and c_L and the Strouhal number of the
+    harmonic fit of c_L (diameter 1, mean inflow 1).  The fit starts from
+    the zero-crossing frequency of the whole run: an FFT of a few periods
+    resolves frequency only to 1 / window."""
+    from navierstokes_tpu_torch.utils.signal import periodic_fit
+
+    series = np.asarray(coefficients)
+    win = series[series[:, 0] > series[-1, 0] - window]
+    f0 = crossing_frequency(series[:, 0], series[:, 2])
+    fit_l = periodic_fit(win[:, 0], win[:, 2], f0=f0, refine=0.1)
+    fit_d = periodic_fit(win[:, 0], win[:, 1], f0=2.0 * fit_l["freq"],
+                         refine=0.02)
+    return {"cd_max": float(win[:, 1].max()),
+            "cl_max": float(win[:, 2].max()),
+            "strouhal": fit_l["freq"], "strouhal_crossings": f0,
+            "cd_max_fit": fit_d["max"],
+            "cl_max_fit": fit_l["max"], "samples": len(win),
+            "finite": bool(np.isfinite(series).all())}
+
+
+def phase_dfg(dev, smi, profile_dir):
+    """DFG 2D-2 at resolution 3 through the application layer; returns
+    its launch counts."""
+    dt, n_steps = PROBLEMS["dfg_dt"], PROBLEMS["dfg_steps"]
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        problem = InstrumentedDFG(
+            tmp, end_time=1.0e6, resolution=PROBLEMS["dfg_res"], dt=dt,
+            print_every=PROBLEMS["dfg_print_every"], device=dev,
+            dtype=torch.float32,
+            solver_options={"cg_rtol": SOLVER["cg_rtol"]})
+        problem.set_solver_class(dfg_seeded_solver(
+            PROBLEMS["dfg_seed"], os.path.join(tmp, "seed.npz")))
+        problem._write_output = False
+        problem.instrument(N_WARMUP, n_steps - N_WARMUP - N_BUSY, N_BUSY)
+        mesh_t = {}
+        setup_mesh = problem.setup_mesh
+
+        def timed_mesh():
+            t = time.perf_counter()
+            setup_mesh()
+            mesh_t["mesh"] = time.perf_counter() - t
+
+        problem.setup_mesh = timed_mesh
+        cuda_band.reset_launch_counts()
+        lines = run_quietly(problem)
+        busy = problem.finish_profile()
+        total = time.perf_counter() - t0
+        launches = dict(cuda_band.LAUNCHES)
+    solver = problem._get_solver()
+    ms = problem.ms_per_step()
+    t_read = time.perf_counter()
+    coeffs = problem.materialize_coefficients()
+    t_read = time.perf_counter() - t_read
+    summary = dfg_summary(coeffs, PROBLEMS["dfg_window"])
+    if profile_dir:
+        os.makedirs(profile_dir, exist_ok=True)
+        np.savetxt(os.path.join(profile_dir, "dfg_forces.csv"),
+                   np.asarray(coeffs), delimiter=",", header="t,c_D,c_L")
+    amg =solver._fast_step.static["p_precond"].__self__
+    emit({"phase": "dfg",
+          "config": f"DFG 2D-2 (Re 100) resolution {PROBLEMS['dfg_res']:g} "
+                    f"symmetric mesh, f32, dt {dt:g}, {n_steps} steps from "
+                    f"{PROBLEMS['dfg_seed']} (saturated, t = 315; loaded "
+                    "with io/checkpoint), ProjectionSolver, amg, cg_rtol "
+                    f"{SOLVER['cg_rtol']:g}, force every step",
+          "n_dofs": solver.space.n_dofs, "step_kind": solver._step_kind,
+          "operators": engine_formats(solver._fast),
+          "amg_rows_per_level": [lv["dinv"].numel() for lv in amg.levels]
+          + [amg.coarse_inv.shape[0]],
+          "steps": len(coeffs), "ms_per_step": ms,
+          "dof_steps_per_s": 1e3 * solver.space.n_dofs / ms,
+          "busy": dict(busy, busy_share=busy["device_ms_per_step"] / ms),
+          "launches_per_step": {k: v / n_steps for k, v in launches.items()},
+          "force_read_seconds": t_read, "stdout_lines": lines,
+          "summary": summary, "guards": DFG_GUARDS,
+          "setup_seconds": dict(setup_seconds(solver), **mesh_t),
+          "seconds_total": total, "nvidia_smi": smi})
+    if solver._step_kind != "fast" or len(coeffs) != n_steps:
+        raise AssertionError(f"dfg: step_kind {solver._step_kind!r}, "
+                             f"{len(coeffs)} force samples")
+    if not summary["finite"]:
+        raise AssertionError("dfg: non-finite forces")
+    for key, (lo, hi) in DFG_GUARDS.items():
+        if not lo <= summary[key] <= hi:
+            raise AssertionError(f"dfg: {key} {summary[key]} outside "
+                                 f"[{lo}, {hi}]")
+    if profile_dir:
+        problem.write_profile_table(smi, profile_dir, "profile_dfg.txt",
+                                    "DFG 2D-2 resolution 3 f32, "
+                                    "application")
+    return launches
+
+
+def resumed_solver(path):
+    """A ProjectionSolver class that starts from the checkpoint at
+    ``path`` (written by a Problem's ``write_checkpoint``)."""
+
+    class Resumed(ProjectionSolver):
+        def set_initial_conditions(self, initial_conditions):
+            super().set_initial_conditions(initial_conditions)
+            load_checkpoint(path, self, self._time_stepping)
+
+    return Resumed
+
+
+def dfg_run(device, n_steps, resume=None, checkpoint_dir=None):
+    """The DFG application at PROBLEMS['parity_res'] in f64 up to step
+    ``n_steps``, from rest or from the checkpoint ``resume``: (u, p, forces)
+    on the host and the launch counts.  With ``checkpoint_dir`` the run
+    writes its last step's checkpoint there."""
+    with tempfile.TemporaryDirectory() as tmp:
+        problem = DFGBenchmark2D2Projection(
+            checkpoint_dir or tmp, end_time=1.0e6, n_max_steps=n_steps,
+            resolution=PROBLEMS["parity_res"], dt=PROBLEMS["dfg_dt"],
+            device=device, dtype=torch.float64)
+        problem._write_output = False
+        if resume:
+            problem.set_solver_class(resumed_solver(resume))
+        if checkpoint_dir:
+            problem._checkpoint_frequency = n_steps
+        cuda_band.reset_launch_counts()
+        run_quietly(problem)
+        launches = dict(cuda_band.LAUNCHES)
+    solver = problem._get_solver()
+    u, p = solver.space.split(solver.solution.cpu())
+    forces = torch.tensor(np.asarray(problem.materialize_coefficients()))
+    return u, p, forces, launches
+
+
+def phase_dfg_parity(dev):
+    """f64 card against CPU (and a second card run) of the DFG application
+    over PROBLEMS['parity_steps'] steps from a checkpoint that the CPU
+    writes after PROBLEMS['parity_warm_steps'] steps from rest; returns
+    the first card run's launch counts.  The warm start takes the
+    comparison past the impulsive start, whose pressure peaks at
+    max|p| ~ 4.5e3 in step 1 and relaxes to ~ 3 by step 10: the absolute
+    roundoff gap of those first steps (~ 1e-10 between any two summation
+    orders) would otherwise be read against the relaxed pressure.  From
+    the warm start p still differs by ~ 5e-13 between two summation orders
+    on this graded mesh (the JAX package against the port on the CPU), so
+    both the max-norm and the 2-norm relative errors are held to 1e-12."""
+    warm, n_steps = PROBLEMS["parity_warm_steps"], PROBLEMS["parity_steps"]
+    seconds = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        dfg_run("cpu", warm, checkpoint_dir=tmp)
+        path = os.path.join(tmp, "results",
+                            "DFGBenchmark2D2Projection_checkpoint.npz")
+        a, b, c = (dfg_run(where, warm + n_steps, resume=path)
+                   for where in (dev, dev, "cpu"))
+    seconds = time.perf_counter() - seconds
+    if len(c[2]) != n_steps:
+        raise AssertionError(f"dfg_parity: {len(c[2])} force samples")
+    keys = ("u", "p", "forces")
+    errs = {k: rel_err(a[i], c[i]) for i, k in enumerate(keys)}
+    errs_l2 = {k: float(torch.linalg.vector_norm(a[i] - c[i])
+                        / torch.linalg.vector_norm(c[i]))
+               for i, k in enumerate(keys)}
+    bitwise = all(torch.equal(a[i], b[i]) for i in range(3))
+    emit({"phase": "dfg_parity", "steps": n_steps, "warm_steps_cpu": warm,
+          "dtype": "float64", "resolution": PROBLEMS["parity_res"],
+          "rel_err_max": errs, "rel_err_l2": errs_l2,
+          "rerun_bitwise": bitwise, "launches": a[3], "seconds": seconds})
+    for norm, table in (("max-norm", errs), ("2-norm", errs_l2)):
+        for key, err in table.items():
+            if not err <= 1e-12:
+                raise AssertionError(f"dfg_parity {key}: relative {norm} "
+                                     f"error {err} > 1e-12")
+    if not bitwise:
+        raise AssertionError("dfg_parity: a second card run differs")
+    return a[3]
+
+
+GROUPS = ("kernels", "structured", "solver", "problems")
 
 
 def main():
@@ -1394,6 +1950,7 @@ def main():
     if not groups <= set(GROUPS):
         ap.error(f"--phases takes {', '.join(GROUPS)}")
 
+    t_start = time.perf_counter()
     smi, kind = phase_device()
     phase_build()
     dev = torch.device(DEVICE)
@@ -1418,19 +1975,30 @@ def main():
         phase_structured_timing(setups, smi)
         phase_structured_parity(setups)
         del setups
+    cavity_ms = None
     if "solver" in groups:
-        _, by_path["solver_cavity"] = phase_solver_cavity(dev, smi,
-                                                          args.profile)
+        cavity_ms, by_path["solver_cavity"] = phase_solver_cavity(
+            dev, smi, args.profile)
         by_path["solver_cavity_kernels"], cavity_t, err_cavity = \
             phase_solver_cavity_kernels(dev, smi)
         by_path["solver_periodic_fast"] = phase_solver_periodic(dev, smi,
                                                                 raw_ms)
         phase_solver_parity(dev)
+    if "problems" in groups:
+        by_path["problem_cavity"] = phase_problem_cavity(dev, smi, cavity_ms,
+                                                         args.profile)
+        by_path["dfg"] = phase_dfg(dev, smi, args.profile)
+        by_path["dfg_parity"] = phase_dfg_parity(dev)
 
+    emit({"phase": "total", "seconds": time.perf_counter() - t_start,
+          "groups": sorted(groups)})
     if groups == set(GROUPS):
         # ``launches`` sums the paths, each counted from 0 by its own phase;
         # every path that a kernel is on must have launched it
-        on_path = {"circulant_apply": list(by_path),
+        # dfg holds no circulant operator at resolution 3 (every square
+        # operator is an AffineBand under the RCM order); at resolution 1
+        # (dfg_parity) the RCM bands of L and Mp fit the circulant cap
+        on_path = {"circulant_apply": [p for p in by_path if p != "dfg"],
                    "circulant_pcg": ["main", "solver_cavity_kernels"]}
         for name, paths in on_path.items():
             for path in paths:

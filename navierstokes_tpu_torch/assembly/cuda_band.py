@@ -49,6 +49,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 MAX_OFFSETS = 96          # kMaxOffsets in band.cu (build_operator's cap)
 GRID_THREADS = 1024       # kGridThreads in band.cu (route B)
+CLUSTER_THREADS = 512     # kClusterThreads in band.cu (route A, pinned)
 CLUSTER_SIZE = 16         # route A: CTAs of the (non-portable) cluster
 H100_SMS = 132            # route B: at most one CTA per SM
 SMEM_PER_BLOCK = 232_448  # the opt-in shared memory of one sm_90 block

@@ -9,11 +9,13 @@ package; the device formats hold torch tensors:
   (P2 mass/stiffness 23 on a 2D torus, P1 Laplacian 9); the band is stored
   dense ``(n_offsets, N)`` and applied by the CUDA kernel of
   ``cuda_band.circulant_apply`` (plain torch for CPU tensors).
-* ``AffineBand`` -- otherwise (operators of non-periodic boxes, the
-  rectangular velocity/pressure couplings), a block-window band: rows in
-  blocks of 128, each block's columns inside a window whose start is
-  affine in the block index; the apply is window construction by
-  reshape/static slices plus one batched dense mat-vec (``torch.bmm``).
+* ``AffineBand`` -- otherwise (operators of non-periodic boxes and of
+  unstructured meshes, the rectangular velocity/pressure couplings), a
+  block-window band: rows in blocks of 128, each block's columns inside a
+  window whose start is affine in the block index (the reverse
+  Cuthill-McKee order keeps the windows of unstructured meshes narrow);
+  the apply is window construction by reshape/static slices plus one
+  batched dense mat-vec (``torch.bmm``).
 * ``GatherOp`` -- the rim couplings above ``NS_FASTOP_RIM_BYTES`` of band
   storage, as sorted COO applied by a padded row-wise gather.
 * ``StencilCoupling`` -- the P2<->P1 gradient/divergence couplings on
@@ -21,9 +23,8 @@ package; the device formats hold torch tensors:
 * ``StridedConv`` -- the convection quadrature over translation classes
   of cells, as static slices of the wrap-padded parity phases.
 
-Not ported yet (each raises ``NotImplementedError`` where a caller reaches
-it): the RCM ordering (meshes whose operators are not circulant under the
-lexicographic order, ROADMAP item 5a-RCM) and 3D (ROADMAP item 5d).
+Not ported yet: 3D (``FastTaylorHood`` raises ``NotImplementedError``
+naming ROADMAP item 5d).
 """
 
 from __future__ import annotations
@@ -103,6 +104,17 @@ def lex_permutation(coords, tol=1e-9):
     keys = np.round(np.asarray(coords, np.float64) / tol).astype(np.int64)
     perm = np.lexsort(tuple(keys[:, ax] for ax in range(keys.shape[1])))
     return np.asarray(perm, dtype=np.int64)
+
+
+def rcm_permutation(A):
+    """Reverse Cuthill-McKee order of a sparse matrix's graph (SciPy on
+    the CSR as ``assemble_csr`` builds it, so the order is the JAX
+    package's)."""
+    from scipy.sparse.csgraph import reverse_cuthill_mckee
+
+    return np.asarray(reverse_cuthill_mckee(A.tocsr(),
+                                            symmetric_mode=False),
+                      dtype=np.int64)
 
 
 def _inverse(perm):
@@ -754,19 +766,23 @@ def _detect_strided_convection(cu_p, ucoords, W, g2):
 class FastTaylorHood:
     """Gather-free scalar-operator suite for a Taylor-Hood space.
 
-    Works in lexicographic node numberings (``permU``, ``permP``) and the
-    planar velocity layout ``(dim, n_unodes)``.  Use ``permute_*`` /
+    Works in permuted node numberings chosen per field (``permU``,
+    ``permP``: lexicographic where that makes the square operators
+    circulant, else reverse Cuthill-McKee on the velocity stiffness with
+    the pressure order induced from it) and the planar velocity layout
+    ``(dim, n_unodes)``.  Use ``permute_*`` /
     ``unpermute_*`` (or ``interleaved_to_planar`` /
     ``planar_to_interleaved``) at solver boundaries; keep state permuted
     across steps.  Device tensors are made on ``device`` (default: the
     card; the CPU only with ``device="cpu"``) in ``dtype`` (default:
     ``config.default_dtype(device)``).
 
-    2D structured boxes are ported, periodic or not: the square operators
-    are circulant under the lexicographic order (``structured``), the
+    2D meshes are ported: on structured boxes the square operators are
+    circulant under the lexicographic order (``structured``), the
     couplings torus stencils on periodic boxes and rim operators
-    (``AffineBand`` / ``GatherOp``) otherwise.  Meshes that need the RCM
-    ordering (ROADMAP item 5a-RCM) and 3D spaces (ROADMAP item 5d) raise
+    (``AffineBand`` / ``GatherOp``) otherwise; on unstructured meshes
+    every operator is an ``AffineBand`` (or a ``GatherOp`` coupling) under
+    the RCM order.  3D spaces (ROADMAP item 5d) raise
     ``NotImplementedError``.
     """
 
@@ -796,14 +812,21 @@ class FastTaylorHood:
 
         ucoords, pcoords = node_coordinates(space)
         permU = lex_permutation(ucoords)
-        permP = lex_permutation(pcoords)
-        if not (_is_circulant(K, permU, circulant_cap)
-                and _is_circulant(L, permP, circulant_cap)):
-            raise NotImplementedError(
-                "operators are not circulant under the lexicographic "
-                "order; the RCM ordering is not ported yet (ROADMAP item "
-                "5a-RCM)")
+        # probe circulant structure on the stiffness pattern
+        if not _is_circulant(K, permU, circulant_cap):
+            permU = rcm_permutation(K)
         self.permU, self.invU = permU, _inverse(permU)
+        permP = lex_permutation(pcoords)
+        if not _is_circulant(L, permP, circulant_cap):
+            # induce the pressure order from the velocity order (P1 nodes
+            # sit on P2 vertex nodes): independent orders would make the
+            # rectangular G/D windows span the whole matrix
+            nn1 = cp.shape[1]
+            p2u = np.full(Np, -1, dtype=np.int64)
+            p2u[cp.ravel()] = cu[:, :nn1].ravel()
+            if not (p2u >= 0).all():
+                raise ValueError("a pressure node lies on no cell vertex")
+            permP = np.argsort(self.invU[p2u], kind="stable")
         self.permP, self.invP = permP, _inverse(permP)
 
         def pu(A):

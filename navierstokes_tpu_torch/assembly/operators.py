@@ -3,10 +3,13 @@
 
 ``MixedOperator`` holds the forward subset the solver layer calls: the
 assembled residual (with or without Dirichlet masking), boundary
-tractions and fluxes, L2 projections and functionals.  The Jacobian
-methods, ``VelocityOperator`` and ``PressurePoissonOperator`` come with the
-Newton and IPCS stacks and raise ``NotImplementedError`` until then; the
-sparsity pattern comes with them (``set_bc_dofs`` only stores the dofs).
+tractions and fluxes, L2 projections and functionals.
+``PressurePoissonOperator`` is the matrix-free P1 Laplacian and mass (the
+stream-potential solve of the postprocessing uses it).  The Jacobian
+methods, ``velocity_operator_image``, ``VelocityOperator`` and the PCD
+convection of ``PressurePoissonOperator`` come with the Newton and IPCS
+stacks and raise ``NotImplementedError`` until then; the sparsity pattern
+comes with them (``set_bc_dofs`` only stores the dofs).
 """
 
 from __future__ import annotations
@@ -154,6 +157,10 @@ class MixedOperator:
     def jacobian_dense(self, *args, **kwargs):
         _not_ported("MixedOperator.jacobian_dense", 13)
 
+    def velocity_operator_image(self, *args, **kwargs):
+        _not_ported("MixedOperator.velocity_operator_image (the explicit "
+                    "side of the theta/IMEX splittings)", "9b")
+
     # -- boundary tractions ---------------------------------------------------
     def facet_batch_device(self, batch: dict) -> dict:
         """The arrays of ``space.facet_batch`` as tensors, plus the node
@@ -279,8 +286,52 @@ class VelocityOperator:
 
 
 class PressurePoissonOperator:
-    """The matrix-free P1 Laplacian and mass of the IPCS projection step."""
+    """P1 scalar Laplacian + mass on the pressure dofmap (SPD, matrix-free).
 
-    def __init__(self, *args, **kwargs):
-        _not_ported("PressurePoissonOperator (the IPCS projection step)",
-                    14)
+    Tensors live on ``device`` (default: the card; the CPU only with
+    ``device="cpu"``) in ``dtype``.  The stream-potential postprocessing
+    solve uses it.
+    """
+
+    def __init__(self, space: TaylorHoodSpace, *, device=None, dtype=None):
+        self.space = space
+        self.dim = space.dim
+        self.device = device = config.require_device(device)
+        self.dtype = dt = config.resolve_dtype(dtype, device)
+
+        def floats(a):
+            return torch.tensor(np.asarray(a), dtype=dt, device=device)
+
+        self.Jinv = floats(space.Jinv_q)
+        self.W = floats(space.integration_weights())
+        self.cell_pnodes = torch.tensor(np.asarray(space.cell_pnodes),
+                                        dtype=torch.int64, device=device)
+        self.n_dofs = space.n_pnodes
+        self.G1 = floats(space.G1)
+        self.N1 = floats(space.N1)
+        self._g1 = torch.einsum("qja,cqae->cqje", self.G1, self.Jinv)
+        self._scatter = SegmentSum(space.cell_pnodes, space.n_pnodes, device)
+
+    def stiffness_matvec(self, p):
+        grad_p = torch.einsum("cj,cqje->cqe", p[self.cell_pnodes], self._g1)
+        r_c = torch.einsum("cq,cqe,cqje->cj", self.W, grad_p, self._g1)
+        return self._scatter(r_c)
+
+    def mass_matvec(self, p):
+        p_q = torch.einsum("qj,cj->cq", self.N1, p[self.cell_pnodes])
+        r_c = torch.einsum("cq,cq,qj->cj", self.W, p_q, self.N1)
+        return self._scatter(r_c)
+
+    def rhs_grad_dot_gradq(self, grad_at_quad):
+        """b_j = integral(grad_at_quad . grad(N_j))."""
+        r_c = torch.einsum("cq,cqe,cqje->cj", self.W, grad_at_quad, self._g1)
+        return self._scatter(r_c)
+
+    def rhs_scalar(self, vals_at_quad):
+        """b_j = integral(vals * N_j)."""
+        r_c = torch.einsum("cq,cq,qj->cj", self.W, vals_at_quad, self.N1)
+        return self._scatter(r_c)
+
+    def convection_matvec(self, *args, **kwargs):
+        _not_ported("PressurePoissonOperator.convection_matvec (the PCD "
+                    "preconditioner's transport operator)", "9b")

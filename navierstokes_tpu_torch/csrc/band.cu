@@ -79,6 +79,15 @@ constexpr int kApplyThreads = 256;
 constexpr int kGridThreads = 1024;    // route B CTA
 constexpr int kClusterThreads = 512;  // route A CTA
 constexpr int kMaxCluster = 16;
+// Route A runs with 512-thread CTAs only.  With 1024 threads it returned
+// a wrong r for B >= 2 in one chip run, and the cause was never found
+// (ClusterMem's layout and reductions read as independent of the block
+// size); every route-A configuration that ships is held against the plain
+// version on the card, B = 1 and B = 2, f32 and f64 (chip_smoke.py, phase
+// kernels).  Change the size only together with those checks, and with
+// cuda_band.CLUSTER_THREADS and SMEM_STATIC (red[] grows with it).
+static_assert(kClusterThreads == 512,
+              "route A is verified with 512-thread CTAs only");
 constexpr int kClusterPartials = kMaxCluster * kClusterThreads / 32;
 
 struct OffsetList {

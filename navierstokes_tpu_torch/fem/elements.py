@@ -149,6 +149,16 @@ def tabulate(degree: int, points: np.ndarray, dim: int):
     raise ValueError(f"unsupported degree {degree}")
 
 
+def reference_nodes(degree: int, dim: int) -> np.ndarray:
+    """Node coordinates on the reference simplex (matching the ordering)."""
+    verts = np.concatenate([np.zeros((1, dim)), np.eye(dim)], axis=0)
+    if degree == 1:
+        return verts
+    pairs = _triangle_edge_pairs() if dim == 2 else _tet_edge_pairs()
+    mids = np.array([(verts[a] + verts[b]) / 2.0 for a, b in pairs])
+    return np.concatenate([verts, mids], axis=0)
+
+
 def facet_embedding(dim: int, local_facet: int, facet_points: np.ndarray):
     """Map facet reference coordinates into cell reference coordinates.
 

@@ -5,10 +5,12 @@ once.  P2 velocity nodes are mesh vertices + edge midpoints, P1 pressure
 nodes the vertices; periodic BCs merge slave nodes into master nodes
 before numbering.  Mixed dof layout ``[u_0x, u_0y, u_1x, ..., p_0, ...]``.
 
-Ported so far: the constructor (straight cells, optional periodicity),
-``split`` / ``join``, quadrature geometry, interpolation, the facet
-(boundary) machinery and vertex extraction.  Boundary snapping and point
-evaluation are not ported yet.
+Boundary mid-edge nodes may be snapped onto a curved boundary
+(``snap``, or the mesh's ``mesh.snap``): the cells then carry the
+isoparametric P2 coordinate map, with per-quadrature-point Jacobians
+computed exactly as the JAX package computes them.  Point evaluation
+(``eval_pressure``, ``eval_velocity``) locates points by the straight-cell
+hull, as the JAX package does.
 """
 
 from __future__ import annotations
@@ -126,15 +128,40 @@ class TaylorHoodSpace:
     """P2/P1 (velocity/pressure) mixed space on a simplex mesh."""
 
     def __init__(self, mesh: SimplexMesh, periodic=None,
-                 quadrature_degree: int = 6, renumber="morton"):
+                 quadrature_degree: int = 6, renumber="morton", snap=None):
         self.mesh = mesh
         self.dim = dim = mesh.dim
         self.periodic = list(periodic) if periodic else []
         self.quadrature_degree = quadrature_degree
         nv = mesh.n_vertices
 
-        u_coords_raw = np.concatenate(
-            [mesh.points, mesh.points[mesh.edges].mean(axis=1)], axis=0)
+        # raw node sets; boundary mid-edge nodes optionally snapped onto a
+        # curved boundary -> isoparametric P2 cells
+        edge_mid = mesh.points[mesh.edges].mean(axis=1)
+        if snap is None:
+            snap = getattr(mesh, "snap", None)
+        self.snap = snap
+        if snap is not None:
+            on_curve, project = snap
+            von = np.asarray(on_curve(mesh.points), dtype=bool)
+            if dim == 2:
+                ext_edge = mesh.exterior_facet_mask
+            else:
+                # an edge is on the exterior surface iff it belongs to an
+                # exterior (boundary) triangle
+                ext_f = mesh.facets[mesh.exterior_facet_mask]
+                pairs = np.sort(
+                    ext_f[:, [[0, 1], [0, 2], [1, 2]]].reshape(-1, 2),
+                    axis=1)
+                enc = pairs[:, 0].astype(np.int64) * nv + pairs[:, 1]
+                eenc = (mesh.edges[:, 0].astype(np.int64) * nv
+                        + mesh.edges[:, 1])
+                ext_edge = np.isin(eenc, enc)
+            emask = von[mesh.edges[:, 0]] & von[mesh.edges[:, 1]] \
+                & ext_edge
+            if emask.any():
+                edge_mid[emask] = project(edge_mid[emask])
+        u_coords_raw = np.concatenate([mesh.points, edge_mid], axis=0)
         p_coords_raw = mesh.points
         cell_unodes_raw = np.concatenate(
             [mesh.cells, nv + mesh.cell_edges], axis=1)
@@ -186,12 +213,17 @@ class TaylorHoodSpace:
         self.N2, self.G2 = elements.tabulate(2, q, dim)
         self.N1, self.G1 = elements.tabulate(1, q, dim)
 
-        # per-quadrature-point P2 geometry from the raw (pre-merge) node
-        # coordinates, so wrapped periodic cells stay geometrically local
+        # isoparametric P2 geometry: x(xi) = sum_i N2_i X_i with the
+        # (possibly snapped) raw node coordinates -- exact for straight
+        # cells, quadratic on curved-boundary cells.  Raw (pre-merge)
+        # coordinates keep wrapped periodic cells geometrically local.
         X_raw = u_coords_raw[cell_unodes_raw]
         self.cell_ucoords = X_raw
         Jq = np.einsum("qie,cid->cqde", self.G2, X_raw)
         det = np.linalg.det(Jq)
+        # a cell whose det J changes sign across quadrature points is
+        # tangled (a snapped mid-edge node pulled across the opposite
+        # edge): integrating |det| there would corrupt the geometry
         sign = np.sign(det[:, :1])
         if np.any(det * sign <= 0.0):
             bad = np.unique(np.nonzero(det * sign <= 0.0)[0])[:10]
@@ -231,6 +263,47 @@ class TaylorHoodSpace:
     def integration_weights(self) -> np.ndarray:
         """w_q * |det J_c(xi_q)| as an (nc, nq) array."""
         return self.detJ_q * self.quad_weights[None, :]
+
+    # -- point evaluation -----------------------------------------------------
+    def _locate_cells(self, points):
+        """(cell index, barycentric coords) of each query point (host).
+
+        Affine barycentric location; points on curved boundary cells are
+        located by the straight-cell hull (adequate for interior and
+        on-vertex queries).
+        """
+        pts = np.atleast_2d(np.asarray(points, dtype=np.float64))
+        v0 = self.cell_origin                          # (nc, d)
+        # xi = Jinv_affine @ (x - v0); inside iff xi >= 0 and sum(xi) <= 1
+        d = pts[:, None, :] - v0[None, :, :]           # (np, nc, d)
+        xi = np.einsum("ced,pcd->pce", self.Jinv, d)
+        tol = 1e-10
+        inside = np.all(xi >= -tol, axis=2) & \
+            (xi.sum(axis=2) <= 1.0 + tol)
+        cells = np.argmax(inside, axis=1)
+        ok = inside[np.arange(len(pts)), cells]
+        if not ok.all():
+            # fall back to the nearest cell by barycentric violation
+            viol = np.maximum(np.maximum(-xi, 0.0).sum(axis=2),
+                              np.maximum(xi.sum(axis=2) - 1.0, 0.0))
+            cells = np.where(ok, cells, np.argmin(viol, axis=1))
+        return cells, xi[np.arange(len(pts)), cells]
+
+    def eval_pressure(self, p, points):
+        """Exact P1 interpolation of a pressure vector at physical points
+        (a float for one point, an array otherwise)."""
+        cells, xi = self._locate_cells(points)
+        N1, _ = elements.tabulate(1, xi, self.dim)
+        p = _host(p)
+        vals = np.einsum("pj,pj->p", N1, p[self.cell_pnodes[cells]])
+        return vals if len(vals) > 1 else float(vals[0])
+
+    def eval_velocity(self, u, points):
+        """P2 interpolation of a velocity field (n_unodes, dim) at points."""
+        cells, xi = self._locate_cells(points)
+        N2, _ = elements.tabulate(2, xi, self.dim)
+        u = _host(u)
+        return np.einsum("pi,pid->pd", N2, u[self.cell_unodes[cells]])
 
     # -- facet (boundary) machinery ----------------------------------------
     def facet_unodes(self, facet_ids: np.ndarray) -> np.ndarray:
@@ -356,11 +429,19 @@ class TaylorHoodSpace:
 
     # -- vertex extraction (for visualization output) -----------------------
     def vertex_velocity(self, u) -> np.ndarray:
-        """Velocity at mesh vertices (n_vertices, dim)."""
-        return np.asarray(u)[self._u_node_map[:self.mesh.n_vertices]]
+        """Velocity at mesh vertices (n_vertices, dim), on the host."""
+        return _host(u)[self._u_node_map[:self.mesh.n_vertices]]
 
     def vertex_pressure(self, p) -> np.ndarray:
-        return np.asarray(p)[self._p_node_map[:self.mesh.n_vertices]]
+        """Pressure at mesh vertices (n_vertices,), on the host."""
+        return _host(p)[self._p_node_map[:self.mesh.n_vertices]]
+
+
+def _host(a) -> np.ndarray:
+    """A NumPy copy of a tensor (any device) or a view of an array."""
+    if hasattr(a, "detach"):
+        return a.detach().cpu().numpy()
+    return np.asarray(a)
 
 
 def _eval_field(fn, coords, t, vector_dim):

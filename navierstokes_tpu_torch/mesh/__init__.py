@@ -1,4 +1,4 @@
-"""Mesh layer: simplex meshes, structured generators, boundary markers."""
+"""Mesh layer: simplex meshes, generators, boundary markers."""
 
 from navierstokes_tpu_torch.mesh.core import (  # noqa: F401
     FacetMarkers,
@@ -8,8 +8,12 @@ from navierstokes_tpu_torch.mesh.core import (  # noqa: F401
     merge_markers,
 )
 from navierstokes_tpu_torch.mesh.generators import (  # noqa: F401
+    channel_with_cylinder,
+    circle_snap,
     hyper_cube,
     hyper_rectangle,
+    open_hyper_cube,
+    sphere_snap,
 )
 from navierstokes_tpu_torch.mesh.markers import (  # noqa: F401
     GeometryType,

@@ -1,11 +1,19 @@
-"""Structured mesh generators (``navierstokes_tpu/mesh/generators.py``).
+"""Mesh generators (``navierstokes_tpu/mesh/generators.py``).
 
-The axis-aligned rectangle (right-diagonal triangles) and box (Kuhn
-6-tet subdivision) are ported, with the unit square and cube built on
-them; the unstructured generators come with a later slice.
+Ported: the axis-aligned rectangle (right-diagonal triangles) and box
+(Kuhn 6-tet subdivision), the unit square and cube built on them, the
+unit cube with opening windows, and the DFG 2D-2 cylinder-in-channel
+point-cloud mesh (``channel_with_cylinder``) with its isoparametric
+boundary snap (``circle_snap``; ``sphere_snap`` for concentric circles).
+Every array equals the JAX package's: the same seeded cloud and the same
+``scipy.spatial.Delaunay``.  The spherical shell, the backward-facing step
+and the Blasius plate are not ported yet.
 """
 
 from __future__ import annotations
+
+import math
+import os
 
 import numpy as np
 
@@ -111,3 +119,301 @@ def hyper_rectangle(first_point, second_point, n_points=10):
 def hyper_cube(dim, n_points=10):
     """Unit square/cube with equidistant resolution."""
     return hyper_rectangle((0.0,) * dim, (1.0,) * dim, n_points)
+
+
+def open_hyper_cube(dim, n_points=10, openings=None):
+    """Unit hyper cube with re-marked opening windows on its faces.
+
+    ``openings = ((position, center, width), ...)`` with position one of
+    left/right/bottom/top/back/front; facets whose vertices all lie within
+    the window get ``HyperCubeBoundaryMarkers.opening`` (the tangential
+    window test applies on every tangential axis).
+    """
+    if openings is None:
+        return hyper_cube(dim, n_points)
+
+    face_axis_value = {
+        "left": (0, 0.0), "right": (0, 1.0),
+        "bottom": (1, 0.0), "top": (1, 1.0),
+        "back": (2, 0.0), "front": (2, 1.0),
+    }
+    for position, center, width in openings:
+        if position not in face_axis_value:
+            raise ValueError(f"unknown face {position!r}")
+        if len(center) != dim:
+            raise ValueError(f"opening center {center} is not {dim}D")
+        if isinstance(width, float) and dim != 2:
+            raise ValueError("a scalar opening width needs dim == 2")
+        if not isinstance(width, float) and len(width) != dim - 1:
+            raise ValueError(f"opening width {width} needs {dim - 1} "
+                             "entries")
+
+    mesh, markers = hyper_cube(dim, n_points)
+    pieces = [(markers.ids_with_value(v.value), v.value)
+              for v in HyperCubeBoundaryMarkers]
+
+    tol = 1.0e-10
+    for position, center, width in openings:
+        axis, value = face_axis_value[position]
+        if axis == 2 and dim != 3:
+            raise ValueError(f"face {position!r} needs a 3D cube")
+        if isinstance(width, float):
+            width = (width,)
+        tangential = [a for a in range(dim) if a != axis]
+        if not abs(center[axis] - value) < tol:
+            raise ValueError("opening center must lie on the named face")
+
+        def in_window(x, axis=axis, value=value, tangential=tangential,
+                      center=center, width=width):
+            ok = np.abs(x[:, axis] - value) < tol
+            for w, a in zip(width, tangential):
+                ok &= np.abs(x[:, a] - center[a]) <= w / 2.0 + tol
+            return ok
+
+        ids = mesh.mark_exterior_facets(in_window)
+        if len(ids) == 0:
+            raise ValueError("opening does not cover any boundary facet")
+        pieces.append((ids, HyperCubeBoundaryMarkers.opening.value))
+
+    return mesh, merge_markers(pieces)
+
+
+# ---------------------------------------------------------------------------
+# unstructured generators
+# ---------------------------------------------------------------------------
+
+def _delaunay_mesh(points, inside_hole=None, min_quality=1e-6):
+    """Delaunay-triangulate a planar point cloud, dropping hole/sliver cells."""
+    from scipy.spatial import Delaunay
+
+    tri = Delaunay(points)
+    cells = tri.simplices.astype(np.int32)
+    v = points[cells]
+    e1, e2 = v[:, 1] - v[:, 0], v[:, 2] - v[:, 0]
+    area = 0.5 * np.abs(e1[:, 0] * e2[:, 1] - e1[:, 1] * e2[:, 0])
+    keep = area > min_quality * np.median(area)
+    if inside_hole is not None:
+        centroid = v.mean(axis=1)
+        keep &= ~inside_hole(centroid)
+    cells = cells[keep]
+    used = np.unique(cells)
+    remap = np.full(len(points), -1, dtype=np.int32)
+    remap[used] = np.arange(len(used), dtype=np.int32)
+    return SimplexMesh(points[used], remap[cells])
+
+
+def sphere_snap(center, radii, tol=None):
+    """(on_curve, project) pair for concentric circles/spheres (any dim).
+
+    Points within ``tol`` of ANY of the ``radii`` are snapped radially to
+    the nearest one, so the P2 mid-edge nodes of every boundary sphere
+    become isoparametric.
+    """
+    c = np.asarray(center, dtype=float)
+    radii = np.sort(np.asarray(radii, dtype=float))
+    t = tol if tol is not None else 1e-6 * radii.max()
+
+    def on_curve(x):
+        r = np.linalg.norm(x - c[None, :], axis=1)
+        return np.min(np.abs(r[:, None] - radii[None, :]), axis=1) < t
+
+    def project(x):
+        d = x - c[None, :]
+        r = np.linalg.norm(d, axis=1, keepdims=True)
+        near = radii[np.argmin(np.abs(r - radii[None, :]), axis=1)]
+        return c[None, :] + d / r * near[:, None]
+
+    return on_curve, project
+
+
+def circle_snap(cx, cy, rad, tol=None):
+    """(on_curve, project) pair for isoparametric boundary snapping.
+
+    Passed to ``TaylorHoodSpace`` (directly or via ``mesh.snap``): P2
+    mid-edge nodes whose edge endpoints both lie on the circle are
+    projected radially onto it, recovering the true curved boundary.
+    """
+    t = tol if tol is not None else 1e-6 * rad
+
+    def on_curve(x):
+        r = np.hypot(x[:, 0] - cx, x[:, 1] - cy)
+        return np.abs(r - rad) < t
+
+    def project(x):
+        d = np.stack([x[:, 0] - cx, x[:, 1] - cy], axis=1)
+        d = d / np.linalg.norm(d, axis=1, keepdims=True)
+        return np.array([cx, cy])[None, :] + rad * d
+
+    return on_curve, project
+
+
+def _legacy_stagger() -> bool:
+    """``NS_RING_STAGGER=legacy`` rebuilds the old (asymmetric) mesh that
+    the legacy states under ``benchmarks/states/`` were computed on;
+    the default ``half`` builds the mirror-symmetric one."""
+    return os.environ.get("NS_RING_STAGGER", "half") == "legacy"
+
+
+def channel_with_cylinder(resolution=1.0, curved=True, wake=1.0,
+                          length=22.0):
+    """DFG 2D-2 cylinder-in-channel benchmark mesh.
+
+    Geometry nondimensionalized by the cylinder diameter: channel
+    [0, length] x [0, 4.1], cylinder center (2, 2), diameter 1.  Boundary-
+    layer rings around the cylinder + a graded, seeded background cloud,
+    Delaunay-triangulated.
+
+    Returns ``(mesh, markers, marker_map)`` with marker names
+    inlet / outlet / upper wall / lower wall / cylinder; with ``curved``
+    the mesh carries ``mesh.snap = circle_snap(...)`` so the space snaps
+    the cylinder's P2 mid-edge nodes onto the circle (isoparametric cells).
+
+    ``wake`` > 1 refines the near wake by that factor; ``length`` is the
+    channel length in diameters (22 = the DFG geometry).
+    """
+    L, H = float(length), 4.1
+    cx, cy, rad = 2.0, 2.0, 0.5
+    res = float(resolution)
+    h_cyl = 0.08 / res      # edge length on the cylinder
+    h_far = 0.45 / res      # far-field edge length
+    pts = []
+
+    # cylinder boundary + geometric boundary-layer rings.  An even count
+    # on the boundary ring puts the front/back stagnation points (angles
+    # pi and 0) on mesh vertices.  curved=True: boundary vertices on the
+    # true circle (the space snaps the mid-edge nodes onto it);
+    # curved=False: a chord-compensated polygon whose chord midpoints lie
+    # on the circle.
+    n_c = 2 * int(round(math.pi * rad / h_cyl))
+    rad_poly = rad if curved else rad / math.cos(math.pi / n_c)
+    growth, r_k, h_k = 1.25, rad_poly, h_cyl
+    ring_i = 0
+    legacy = _legacy_stagger()
+    while r_k < 2.6 * rad:
+        n_k = n_c if r_k == rad_poly \
+            else max(16, int(round(2.0 * math.pi * r_k / h_k)))
+        ang = np.linspace(0.0, 2.0 * math.pi, n_k, endpoint=False)
+        # alternate rings staggered by half a step (both phases keep each
+        # ring mirror-symmetric about the horizontal axis through the
+        # cylinder center); legacy: the old rotation by 0.5 (r_k - rad)
+        if legacy:
+            ang += 0.5 * (r_k - rad)
+        elif ring_i % 2 == 1:
+            ang += math.pi / n_k
+        pts.append(np.stack([cx + r_k * np.cos(ang),
+                             cy + r_k * np.sin(ang)], axis=1))
+        h_k *= growth
+        r_k += h_k
+        ring_i += 1
+
+    # background cloud: spacing grows with distance from the cylinder,
+    # refined wake corridor behind it; ``wake`` > 1 refines the near wake
+    def local_h(xy):
+        d = np.hypot(xy[:, 0] - cx, xy[:, 1] - cy) - rad
+        h = np.minimum(h_far, 0.12 / res + 0.12 * np.maximum(d, 0.0))
+        corridor = (xy[:, 0] > cx) & (np.abs(xy[:, 1] - cy) < 1.2)
+        h = np.where(corridor & (xy[:, 0] < cx + 12.0),
+                     np.minimum(h, 0.22 / res), h)
+        if wake > 1.0:
+            ramp = np.clip((cx + 8.0 - xy[:, 0]) / 4.0, 0.0, 1.0)
+            eff = 1.0 + (wake - 1.0) * ramp
+            near = corridor & (np.abs(xy[:, 1] - cy) < 1.1)
+            h = np.where(near, np.minimum(h, 0.22 / (res * eff)), h)
+        return h
+
+    # rejection-sampled jittered grid honoring local_h (the JAX package's
+    # seed, so the cloud is the same point for point)
+    rng = np.random.default_rng(20260816)
+    base_h = 0.12 / res
+    xs = np.arange(0.0, L + base_h, base_h)
+    ys = np.arange(0.0, H + base_h, base_h)
+    X, Y = np.meshgrid(xs, ys, indexing="ij")
+    cand = np.stack([X.ravel(), Y.ravel()], axis=1)
+    cand += rng.uniform(-0.25, 0.25, cand.shape) * base_h
+    cand[:, 0] = np.clip(cand[:, 0], 0.0, L)
+    cand[:, 1] = np.clip(cand[:, 1], 0.0, H)
+    hloc = local_h(cand)
+    accept = rng.random(len(cand)) < (base_h / hloc) ** 2
+    cand = cand[accept]
+    if wake > 1.0:
+        # secondary candidate grid in the near-wake box: add the density
+        # 1/h^2 - 1/base_h^2 the primary grid cannot reach
+        bh2 = 0.12 / (res * wake)
+        xs2 = np.arange(cx, cx + 8.0 + bh2, bh2)
+        ys2 = np.arange(cy - 1.15, cy + 1.15 + bh2, bh2)
+        X2, Y2 = np.meshgrid(xs2, ys2, indexing="ij")
+        cand2 = np.stack([X2.ravel(), Y2.ravel()], axis=1)
+        cand2 += rng.uniform(-0.25, 0.25, cand2.shape) * bh2
+        cand2[:, 1] = np.clip(cand2[:, 1], 0.0, H)
+        h2 = local_h(cand2)
+        p2 = (bh2 / h2) ** 2 - (bh2 / base_h) ** 2
+        cand2 = cand2[rng.random(len(cand2)) < p2]
+        cand = np.concatenate([cand, cand2])
+    # keep clear of the cylinder + rings and the walls
+    d_c = np.hypot(cand[:, 0] - cx, cand[:, 1] - cy)
+    cand = cand[d_c > r_k - 0.4 * h_k]
+    # mirror-symmetrize the near-cylinder cloud about the horizontal axis
+    # through the cylinder center: a reflection-symmetric point set makes
+    # the Delaunay triangulation symmetric (up to ties), so mesh-induced
+    # spurious lift cancels.  The reflection band stays clear of the
+    # walls.
+    if not legacy:
+        R_sym, Y_bnd = 6.0, 1.55
+        d_c = np.hypot(cand[:, 0] - cx, cand[:, 1] - cy)
+        near = (d_c < R_sym) & (np.abs(cand[:, 1] - cy) < Y_bnd)
+        keep = cand[~near]
+        upper_half = cand[near & (cand[:, 1] >= cy)].copy()
+        # points hugging the symmetry plane go onto it (a point at cy + eps
+        # and its mirror would form a sliver pair).  Carried over as the
+        # JAX package has it: the snapped points are not deduplicated.
+        snap = upper_half[:, 1] - cy < 0.35 * local_h(upper_half)
+        upper_half[snap, 1] = cy
+        mirrored = upper_half * np.array([1.0, -1.0]) \
+            + np.array([0.0, 2.0 * cy])
+        strict = upper_half[:, 1] > cy + 1e-12
+        cand = np.concatenate([keep, upper_half, mirrored[strict]])
+    interior = ((cand[:, 0] > 0.4 * h_far) & (cand[:, 0] < L - 0.4 * h_far)
+                & (cand[:, 1] > 0.4 * base_h) & (cand[:, 1] < H - 0.4 * base_h))
+    pts.append(cand[interior])
+
+    # channel boundary points (graded along the walls near the cylinder)
+    def wall_points(y):
+        t = [0.0]
+        x = 0.0
+        while x < L:
+            h = float(local_h(np.array([[x, y]]))[0])
+            x = min(L, x + h)
+            t.append(x)
+        return np.stack([np.array(t), np.full(len(t), y)], axis=1)
+
+    lower, upper = wall_points(0.0), wall_points(H)
+    n_io = int(round(H / (0.28 / res)))
+    ysb = np.linspace(0.0, H, n_io + 1)[1:-1]
+    inlet = np.stack([np.zeros(len(ysb)), ysb], axis=1)
+    outlet = np.stack([np.full(len(ysb), L), ysb], axis=1)
+    pts += [lower, upper, inlet, outlet]
+
+    points = np.concatenate(pts, axis=0)
+    mesh = _delaunay_mesh(
+        points,
+        inside_hole=lambda c: np.hypot(c[:, 0] - cx, c[:, 1] - cy) < rad)
+
+    tol = 1e-9 * L
+    marker_map = {"inlet": 1, "outlet": 2, "upper wall": 3, "lower wall": 4,
+                  "cylinder": 5}
+    on_cyl = mesh.mark_exterior_facets(
+        lambda x: np.hypot(x[:, 0] - cx, x[:, 1] - cy) < rad + 0.25 * h_cyl)
+    markers = merge_markers([
+        (mesh.mark_exterior_facets(lambda x: x[:, 0] < tol),
+         marker_map["inlet"]),
+        (mesh.mark_exterior_facets(lambda x: x[:, 0] > L - tol),
+         marker_map["outlet"]),
+        (mesh.mark_exterior_facets(lambda x: x[:, 1] > H - tol),
+         marker_map["upper wall"]),
+        (mesh.mark_exterior_facets(lambda x: x[:, 1] < tol),
+         marker_map["lower wall"]),
+        (on_cyl, marker_map["cylinder"]),
+    ])
+    if curved:
+        mesh.snap = circle_snap(cx, cy, rad, tol=1e-6 * rad)
+    return mesh, markers, marker_map

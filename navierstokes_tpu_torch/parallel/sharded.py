@@ -2,12 +2,20 @@
 
 The transpose-gather table (node -> contributing (cell, local-node) slots)
 that the gather convection path of ``assembly/fastop.py`` accumulates
-with.  The cell-sharded device operators are a later slice.
+with.  The device mesh and the cell-sharded device operators are a later
+slice (``device_mesh`` raises ``NotImplementedError`` until then).
 """
 
 from __future__ import annotations
 
 import numpy as np
+
+
+def device_mesh(n_devices=None, axis="shard"):
+    """A 1D mesh of devices for the sharded operators (not ported yet)."""
+    raise NotImplementedError(
+        "parallel.sharded.device_mesh is not ported yet (ROADMAP item 15: "
+        "the multi-device layer on torch.distributed)")
 
 
 def _numpy_scatter_transpose(flat_nodes: np.ndarray, n_nodes: int,

@@ -1,6 +1,6 @@
-"""Problem-level helpers: dimensionless coefficients and rotating frames
-(own copies of ``navierstokes_tpu/problems/{coefficients,rotation}.py``;
-the Problem classes come with the application layer)."""
+"""Application-facing problem orchestration: the Problem classes (hooks
+API, time loop, output), dimensionless coefficients, rotating frames and
+the postprocessing of derived fields."""
 
 from navierstokes_tpu_torch.problems.coefficients import (  # noqa: F401
     EquationCoefficientHandler,
@@ -8,4 +8,9 @@ from navierstokes_tpu_torch.problems.coefficients import (  # noqa: F401
 from navierstokes_tpu_torch.problems.rotation import (  # noqa: F401
     AngularVelocityVector,
     FunctionTime,
+)
+from navierstokes_tpu_torch.problems.base import (  # noqa: F401,E402
+    InstationaryProblem,
+    ProblemBase,
+    StationaryProblem,
 )

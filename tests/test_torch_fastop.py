@@ -114,14 +114,25 @@ def test_planar_ops_round_trip(engines):
 
 
 def test_meshes_not_ported_yet_raise():
-    """Operators that are not circulant under the lexicographic order need
-    the RCM ordering, and the 3D engine is not ported yet: both refuse
-    instead of building something else, naming their ROADMAP item.  (A
-    wall-bounded box is circulant there and builds: test_torch_rim.py.)"""
+    """The 3D engine is not ported yet: it refuses instead of building
+    something else, naming its ROADMAP item.  Operators that are not
+    circulant under the lexicographic order take the RCM ordering (item
+    5a-RCM, now ported): the same order and bands as the JAX engine's."""
     mesh, _ = hyper_rectangle((0.0, 0.0), (2.0, 1.0), (12, 6))
-    with pytest.raises(NotImplementedError, match="ROADMAP item 5a-RCM"):
-        tfo.FastTaylorHood(TaylorHoodSpace(mesh), device="cpu",
-                           circulant_cap=4)
+    tf = tfo.FastTaylorHood(TaylorHoodSpace(mesh), device="cpu",
+                            circulant_cap=4)
+    from navierstokes_tpu.mesh import hyper_rectangle as jax_rectangle
+
+    jmesh, _ = jax_rectangle((0.0, 0.0), (2.0, 1.0), (12, 6))
+    jf = jfo.FastTaylorHood(JaxSpace(jmesh), circulant_cap=4)
+    assert np.array_equal(tf.permU, np.asarray(jf.permU))
+    assert np.array_equal(tf.permP, np.asarray(jf.permP))
+    assert not np.array_equal(tf.permU, tfo.lex_permutation(
+        tfo.node_coordinates(tf.space)[0]))
+    for name in ("M", "K", "L", "Mp"):
+        assert isinstance(getattr(tf, name), tfo.AffineBand)
+        assert np.array_equal(getattr(tf, name).bandmat.numpy(),
+                              np.asarray(getattr(jf, name).bandmat))
     mesh, _ = hyper_cube(3, 2)
     with pytest.raises(NotImplementedError, match="ROADMAP item 5d"):
         tfo.FastTaylorHood(TaylorHoodSpace(mesh), device="cpu")

@@ -228,7 +228,10 @@ def test_mass_rhs_matches_the_velocity_operator(dim):
     (lambda op: op.jacobian_dense(None, {}), 13),
     (lambda op: op.velocity_jacobi_diags(), 13),
     (lambda op: tops.VelocityOperator(op.space), 14),
-    (lambda op: tops.PressurePoissonOperator(op.space), 14),
+    # the matrix-free Laplacian and mass are ported; the PCD convection
+    # operator comes with the Jacobian side
+    (lambda op: tops.PressurePoissonOperator(
+        op.space, device="cpu").convection_matvec(None, None), "9b"),
 ], ids=["linearize_at", "jacobian_csr", "jacobian_dense",
         "velocity_jacobi_diags", "VelocityOperator",
         "PressurePoissonOperator"])
