@@ -76,7 +76,9 @@ non-zero):
                (step_kind "spectral") and with prefer_spectral=False
                ("fast": stencil couplings, strided convection), 100 steps
                each, amp_rel_err < 0.05, ms/step beside the raw-step
-               figures of phases main and structured2d.
+               figures of phases main and structured2d, and per step the
+               host-to-device and device-to-host copies and item() reads of
+               each path beside the raw steps' (torch.profiler).
 14. solver_parity -- f64, card against CPU, 10 steps: cavity 32^2 with the
                defaults (AffineBand couplings) and again with
                NS_FASTOP_RIM_BYTES forcing GatherOp couplings, and the
@@ -110,14 +112,54 @@ non-zero):
                on the card twice and on the CPU: u, p and the force series
                agree to 1e-12 relative in the max-norm and in the 2-norm,
                and the two card runs bit for bit.
-18. the total seconds, the ``kernels`` line, then the card's nvidia-smi
+18. newton_dfg -- DFG 2D-1 (Re = 20) at resolution 3 (75,509 DoFs), f64,
+               configured as benchmarks/dfg_2d1_steady.py::run(3.0):
+               StationarySolver(tol=1e-10, linear_solver="host_lu"), the
+               Jacobian assembled on the card and factored by SuperLU on
+               the host.  Requires ||F||_2 <= 1e-10, c_D in [5.57, 5.59],
+               c_L in [0.0104, 0.0110] and within 1e-3 / 2e-5 of the JAX
+               package's 5.5796 / 0.010636; prints the Picard and Newton
+               counts and per iteration the Jacobian assembly (its first
+               call, which also builds the device pattern, apart from the
+               median of the rest), the copy to the host, splu, the solve
+               and the residual.
+19. newton_cavity -- demo/cavity_flow.py's StationaryProblem at 128^2,
+               Re = 100, f64, with the card's default linear mode, which
+               must resolve to "pcd" (matrix-free PCD + FGMRES + AMG).
+               Requires ||F||_2 <= 1e-10 and the vertical centre line's
+               u_min within 0.006 of Ghia's -0.2109, and that the first
+               solve converged: one nonlinear solve on record
+               (StationaryProblem's Reynolds continuation was not taken).
+               Prints the counts, FGMRES matvecs per Newton step, host
+               syncs (torch's sync debug mode), the AMG setup seconds,
+               the gather tables of its hot loop (rows, padded width,
+               mean row length of each AMG level and segment sum) and the
+               device ms of three forms of the largest table's gather.
+20. bdf_dfg -- DFG 2D-2 through ImplicitBDFSolver as
+               benchmarks/dfg_monolithic.py runs it (resolution 3,
+               do-nothing outflow, frozen LU, tol 1e-6, dt 0.005), the
+               BDF-2 ring seeded from the committed t = 315 state, 100
+               steps with the reaction force every step.  Requires every
+               step to converge and c_D in [3.155, 3.230], c_L in [-1.02,
+               0.99] on every step; prints ms/step, DoF-steps/s, Newton
+               iterations per step, LU factorizations and the busy share.
+21. newton_parity -- f64 at 12^2, the card against the CPU: the stationary
+               solver in its dense, host_lu and pcd modes and 5 steps of
+               the BDF (host_lu, frozen_lu), Crank-Nicolson, SBDF-2 and
+               IPCS solvers; direct paths <= 1e-10, iterative <= 1e-8,
+               equal Newton counts, a second card run of every direct path
+               bit for bit.
+22. the total seconds, the ``kernels`` line, then the card's nvidia-smi
    line, then the last line ``{"ok": true, "device": {...}}``.
 
 ``--profile DIR`` also writes a torch.profiler table of 10 steps of each
 path (banded, structured 2D, structured 3D, solver cavity, problem cavity,
-DFG) to DIR.  ``--phases LIST`` runs only the named groups (``kernels``,
-``structured``, ``solver``, ``problems``; the device and build phases
-always run) and then prints no ``kernels`` line.  ``--baseline DIR``
+DFG, monolithic DFG), of one Newton iteration of newton_dfg and of one
+10-iteration PCD-FGMRES restart cycle of newton_cavity (by device time,
+host time and input shape) to DIR.
+``--phases LIST`` runs only the named groups (``kernels``,
+``structured``, ``solver``, ``problems``, ``newton``; the device and build
+phases always run) and then prints no ``kernels`` line.  ``--baseline DIR``
 also times the kernels of another checkout of this repository (its ``navierstokes_tpu_torch``, built from its own
 source) on the same inputs in the same process, in the order baseline,
 this, this, baseline.
@@ -150,12 +192,15 @@ from navierstokes_tpu_torch.fem.spaces import axis_periodic
 from navierstokes_tpu_torch.io import load_checkpoint, save_checkpoint
 from navierstokes_tpu_torch.mesh import channel_with_cylinder, hyper_cube
 from navierstokes_tpu_torch.problems import (EquationCoefficientHandler,
-                                             InstationaryProblem)
+                                             InstationaryProblem,
+                                             StationaryProblem)
 from navierstokes_tpu_torch.setups import (channel_setup,
                                            lid_driven_cavity_setup,
                                            parabolic_inlet,
                                            taylor_green_setup)
-from navierstokes_tpu_torch.solvers import ProjectionSolver, planar_step
+from navierstokes_tpu_torch.solvers import (ImplicitBDFSolver,
+                                            ProjectionSolver,
+                                            StationarySolver, planar_step)
 from navierstokes_tpu_torch.solvers.planar_step import \
     build_planar_projection_step
 from navierstokes_tpu_torch.structured import (PeriodicStructuredTH,
@@ -672,6 +717,39 @@ def phase_baseline(st, subs32, smi, baseline_dir):
           "unit": "ms", "times": out})
 
 
+# host<->device copies and host syncs per step of the raw steps (phases
+# main and structured2d), read by solver_periodic beside the solver paths
+RAW_IO = {}
+
+
+def io_counts(events, n_steps):
+    """Copies each way and ``item()``-style reads (one host
+    synchronisation each) per step, from torch.profiler rows."""
+    c = {"memcpy_htod": 0, "memcpy_dtoh": 0, "local_scalar_reads": 0}
+    for e in events:
+        if e.key.startswith("Memcpy HtoD"):
+            c["memcpy_htod"] += e.count
+        elif e.key.startswith("Memcpy DtoH"):
+            c["memcpy_dtoh"] += e.count
+        elif e.key == "aten::_local_scalar_dense":
+            c["local_scalar_reads"] += e.count
+    return {k + "_per_step": v / n_steps for k, v in c.items()}
+
+
+def io_per_step(advance, n=None):
+    """:func:`io_counts` of ``n`` (default N_BUSY) profiled calls of
+    ``advance`` (one step each)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    n = N_BUSY if n is None else n
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            advance()
+        torch.cuda.synchronize()
+    return io_counts(prof.key_averages(), n)
+
+
 def phase_main(st, smi, profile_dir):
     """The main path; returns the launch counts of its run and its ms per
     step."""
@@ -709,32 +787,35 @@ def phase_main(st, smi, profile_dir):
     for name, count in launches.items():
         if count <= 0:
             raise AssertionError(f"{name} was not launched by the main path")
+    box = [state]
+
+    def advance():
+        u_new, p_new, phi = step(*box[0], ALPHAS[1], ETAS[1])
+        box[0] = (u_new, box[0][0], p_new, phi)
+
+    RAW_IO["main"] = io_per_step(advance)
     if profile_dir:
-        box = [state]
-
-        def advance():
-            u_new, p_new, phi = step(*box[0], ALPHAS[1], ETAS[1])
-            box[0] = (u_new, box[0][0], p_new, phi)
-
         write_profile(advance, smi, profile_dir, "profile_main.txt",
                       f"taylor-green {N_POINTS}^2 f32, banded step")
     return launches, 1e3 * elapsed / N_STEPS
 
 
-def write_profile(advance, smi, profile_dir, filename, title):
-    """torch.profiler table of N_BUSY calls of ``advance`` (one step each)."""
+def write_profile(advance, smi, profile_dir, filename, title, n=None):
+    """torch.profiler table of ``n`` (default N_BUSY) calls of ``advance``
+    (one step each)."""
     from torch.profiler import ProfilerActivity, profile
 
+    n = N_BUSY if n is None else n
     os.makedirs(profile_dir, exist_ok=True)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        for _ in range(N_BUSY):
+        for _ in range(n):
             advance()
         torch.cuda.synchronize()
     table = prof.key_averages().table(sort_by="cuda_time_total",
                                       row_limit=40)
     with open(os.path.join(profile_dir, filename), "w") as f:
-        f.write(f"{smi}\n{N_BUSY} steps, {title}\n{table}")
+        f.write(f"{smi}\n{n} steps, {title}\n{table}")
 
 
 def phase_parity(st):
@@ -836,6 +917,7 @@ def phase_structured(ss, smi, profile_dir):
         raise AssertionError(f"{ss.name} produced non-finite values")
     if not amp_err < 0.05:
         raise AssertionError(f"{ss.name}: amp_rel_err {amp_err} >= 0.05")
+    RAW_IO[ss.name] = io_per_step(ss.advance)
     if profile_dir:
         write_profile(ss.advance, smi, profile_dir,
                       f"profile_{ss.name}.txt", ss.config)
@@ -1123,7 +1205,8 @@ def solver_busy(solver, ts, ms_per_step):
             # a device scalar: a host synchronisation
             "host_syncs_per_step": counts.get("aten::_local_scalar_dense",
                                               0.0),
-            "per_step": counts}
+            "per_step": counts,
+            "io": io_counts(prof.key_averages(), N_BUSY)}
 
 
 def residual_records(solver):
@@ -1319,6 +1402,12 @@ def phase_solver_periodic(dev, smi, raw_ms):
                                            for k, v in counts.items()},
                      "setup_seconds": dict(setup_seconds(solver),
                                            through_initial_conditions=t_ic)}
+        # the solver layer's copies and syncs per step beside the raw
+        # step's (ROADMAP C: the solver layer's cost per step)
+        out[want]["io_per_step"] = solver_busy(
+            solver, ts, 1e3 * elapsed / n_steps)["io"]
+        out[want]["raw_io_per_step"] = RAW_IO.get(
+            "structured2d" if want == "spectral" else "main")
         if want == "fast":
             launches = counts
             fast = solver._fast
@@ -1931,7 +2020,609 @@ def phase_dfg_parity(dev):
     return a[3]
 
 
-GROUPS = ("kernels", "structured", "solver", "problems")
+# ---------------------------------------------------------------------------
+# group "newton": the stationary and monolithic solvers, f64 on the card
+# ---------------------------------------------------------------------------
+
+NEWTON = {"dfg_res": 3.0, "cavity_n": 128, "cavity_re": 100.0,
+          "bdf_res": 3.0, "bdf_dt": 0.005, "bdf_steps": 100,
+          "bdf_seed": "benchmarks/states/dfg_2d2_state_mono_res3_sym.npz",
+          "parity_n": 12, "parity_steps": 5,
+          "parity_restart": 20}
+# Schafer & Turek (1996) intervals, and the JAX package's f64 figures on
+# the resolution-3 mesh (docs/VALIDATION.md) with their allowances
+NEWTON_DFG_GUARDS = {"cd": (5.57, 5.59), "cl": (0.0104, 0.0110),
+                     "cd_ref": (5.5796, 1e-3), "cl_ref": (0.010636, 2e-5)}
+# the committed monolithic series' envelope over its last 5 time units,
+# 3.1608-3.2230 / -1.0134-0.9789, widened slightly
+BDF_GUARDS = {"cd": (3.155, 3.230), "cl": (-1.02, 0.99)}
+# Ghia et al. (1982): u_x minimum on the vertical centre line at Re 100
+GHIA_UMIN = (-0.2109, 0.006)
+# FGMRES iterations in the profiled restart cycle of newton_cavity
+PCD_PROFILE_ITERATIONS = 10
+
+
+class StageTimer:
+    """Wall seconds per stage, each stage closed by a device
+    synchronisation so that it holds the device work it queued."""
+
+    def __init__(self):
+        self.seconds = {}
+
+    def run(self, label, fn, *args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        torch.cuda.synchronize()
+        self.seconds.setdefault(label, []).append(time.perf_counter() - t0)
+        return out
+
+    def wrap(self, obj, name, label):
+        """Time every call of ``obj.name`` under ``label``."""
+        fn = getattr(obj, name)
+        setattr(obj, name, lambda *a, **k: self.run(label, fn, *a, **k))
+
+    def summary(self):
+        """Per stage: calls, total, mean, the first call and the median of
+        the later ones (the first may hold one-time setup)."""
+        return {k: {"calls": len(v), "total_s": sum(v),
+                    "mean_ms": 1e3 * sum(v) / len(v),
+                    "first_ms": 1e3 * v[0],
+                    "rest_median_ms": (1e3 * statistics.median(v[1:])
+                                       if len(v) > 1 else None)}
+                for k, v in self.seconds.items()}
+
+
+@contextlib.contextmanager
+def timed_host_lu(timer):
+    """``solvers.stationary`` factors through a HostSparseLU whose copy
+    off the card, SuperLU factorization and solves are timed apart."""
+    from navierstokes_tpu_torch.linalg import direct
+    from navierstokes_tpu_torch.solvers import stationary
+
+    class TimedLU(direct.HostSparseLU):
+        def __init__(self, csr):
+            t0 = time.perf_counter()
+            super().__init__(csr)
+            timer.seconds.setdefault("splu", []).append(
+                time.perf_counter() - t0 - timer.seconds["csr_copy"][-1])
+
+        @staticmethod
+        def host_matrix(csr):
+            return timer.run("csr_copy", direct.HostSparseLU.host_matrix,
+                             csr)
+
+        def solve(self, b):
+            return timer.run("lu_solve", super().solve, b)
+
+    saved = stationary.HostSparseLU
+    stationary.HostSparseLU = TimedLU
+    try:
+        yield
+    finally:
+        stationary.HostSparseLU = saved
+
+
+def count_syncs(fn):
+    """``(fn(), n)``: the number of synchronizing CUDA calls it made, as
+    torch's sync debug mode reports them."""
+    import warnings
+
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            out = fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    return out, sum("synchroniz" in str(w.message) for w in caught)
+
+
+def dfg_steady_solver(res, device, **kw):
+    """DFG 2D-1 (Re = 20) configured as benchmarks/dfg_2d1_steady.py:
+    the inflow 4 Um s (1 - s) with Um = 0.3, visc 0.01, no outflow
+    condition."""
+    mesh, markers, bm = channel_with_cylinder(res)
+
+    def inlet(x):
+        s = x[:, 1] / H_DFG
+        return np.stack([1.2 * s * (1.0 - s), np.zeros(len(x))], axis=1)
+
+    solver = StationarySolver(mesh, markers, device=device,
+                              dtype=torch.float64, **kw)
+    solver.set_boundary_conditions(
+        ((VelocityBCType.function, bm["inlet"], inlet),
+         (VelocityBCType.no_slip, bm["cylinder"], None),
+         (VelocityBCType.no_slip, bm["upper wall"], None),
+         (VelocityBCType.no_slip, bm["lower wall"], None)))
+    solver.set_equation_coefficients({"convective_term": 1.0,
+                                      "viscous_term": 0.01,
+                                      "pressure_term": 1.0})
+    return solver, bm
+
+
+def nonlinear_record(solver):
+    return dict(solver.monitor.last("nonlinear_solve"))
+
+
+def phase_newton_dfg(dev, smi, profile_dir):
+    """DFG 2D-1 at resolution 3 through the Picard->Newton solver with the
+    Jacobian assembled on the card and factored by SuperLU on the host."""
+    g = NEWTON_DFG_GUARDS
+    cuda_band.reset_launch_counts()
+    t0 = time.perf_counter()
+    solver, bm = dfg_steady_solver(NEWTON["dfg_res"], dev, tol=1e-10,
+                                   linear_solver="host_lu")
+    solver._setup_problem()
+    setup_s = time.perf_counter() - t0
+    timer = StageTimer()
+    op = solver.operator
+    timer.wrap(op, "jacobian_csr", "jacobian_assembly")
+    timer.wrap(op, "residual", "residual")
+    t0 = time.perf_counter()
+    with timed_host_lu(timer), contextlib.redirect_stdout(io.StringIO()):
+        solver.solve()
+    solve_s = time.perf_counter() - t0
+    launches = dict(cuda_band.LAUNCHES)
+    rec = nonlinear_record(solver)
+    force = 50.0 * np.asarray(solver.boundary_reaction_force(bm["cylinder"]))
+    cd, cl = float(force[0]), float(force[1])
+    its = rec["picard_iterations"] + rec["newton_iterations"]
+    stages = timer.summary()
+    out = {"phase": "newton_dfg",
+           "config": f"DFG 2D-1 Re 20, resolution {NEWTON['dfg_res']:g}, "
+                     "f64, StationarySolver(tol=1e-10, "
+                     "linear_solver='host_lu')",
+           "dofs": solver.space.n_dofs, "cells": solver._n_cells,
+           "nnz": op.pattern.nnz,
+           "picard_iterations": rec["picard_iterations"],
+           "newton_iterations": rec["newton_iterations"],
+           "residual": rec["residual"], "c_D": cd, "c_L": cl,
+           "seconds": {"setup": setup_s, "solve": solve_s},
+           "per_iteration_ms": {
+               "jacobian_assembly":
+                   stages["jacobian_assembly"]["rest_median_ms"],
+               "jacobian_assembly_first":
+                   stages["jacobian_assembly"]["first_ms"],
+               "csr_copy_to_host": stages["csr_copy"]["mean_ms"],
+               "splu_s": stages["splu"]["total_s"] / stages["splu"]["calls"],
+               "lu_solve": stages["lu_solve"]["mean_ms"],
+               "residual": stages["residual"]["mean_ms"]},
+           "stages": stages, "launches": launches, "nvidia_smi": smi}
+    if profile_dir:
+        x = solver.solution
+
+        def one_iteration():
+            with contextlib.redirect_stdout(io.StringIO()):
+                solver._linear_step(x, *solver._residual_context()[1:],
+                                    picard=False)
+
+        write_profile(one_iteration, smi, profile_dir,
+                      "profile_newton_dfg.txt",
+                      "one Newton iteration of newton_dfg (Jacobian on the "
+                      "card, SuperLU on the host)", n=1)
+    emit(out)
+    bad = [not rec["residual"] <= 1e-10, its != stages["splu"]["calls"],
+           not g["cd"][0] <= cd <= g["cd"][1],
+           not g["cl"][0] <= cl <= g["cl"][1],
+           not abs(cd - g["cd_ref"][0]) <= g["cd_ref"][1],
+           not abs(cl - g["cl_ref"][0]) <= g["cl_ref"][1]]
+    if any(bad):
+        raise AssertionError(f"newton_dfg guards failed: {bad}")
+    return launches
+
+
+class NewtonCavity(StationaryProblem):
+    """demo/cavity_flow.py's problem (unit lid, no-slip walls) at ``n``^2
+    cells and Reynolds number ``re``."""
+
+    def __init__(self, main_dir, n, re, **kw):
+        super().__init__(main_dir, **kw)
+        self._n_points, self._re = n, re
+        self._problem_name = "Cavity"
+
+    def setup_mesh(self):
+        self._mesh, self._boundary_markers = hyper_cube(2, self._n_points)
+
+    def set_boundary_conditions(self):
+        from navierstokes_tpu_torch.mesh import HyperCubeBoundaryMarkers as M
+
+        self._bcs = ((VelocityBCType.no_slip, M.left.value, None),
+                     (VelocityBCType.no_slip, M.right.value, None),
+                     (VelocityBCType.no_slip, M.bottom.value, None),
+                     (VelocityBCType.constant, M.top.value, (1.0, 0.0)))
+
+    def set_equation_coefficients(self):
+        self._coefficient_handler = EquationCoefficientHandler(Re=self._re)
+
+
+@contextlib.contextmanager
+def timed_pcd_setup(seconds):
+    """Record the seconds of every MatrixFreePCD construction (its AMG
+    hierarchies are built on the host)."""
+    from navierstokes_tpu_torch.linalg import block_precond
+
+    saved = block_precond.MatrixFreePCD
+
+    class Timed(saved):
+        def __init__(self, *a, **k):
+            t0 = time.perf_counter()
+            super().__init__(*a, **k)
+            seconds.append(time.perf_counter() - t0)
+
+    block_precond.MatrixFreePCD = Timed
+    try:
+        yield
+    finally:
+        block_precond.MatrixFreePCD = saved
+
+
+def gather_table(name, table, pad):
+    """Rows, padded width K and mean row length of a padded gather table
+    whose empty slots hold ``pad``."""
+    rows, width = table.shape
+    filled = int((table != pad).sum())
+    return {"table": name, "rows": int(rows), "K": int(width),
+            "mean_row": filled / max(rows, 1)}
+
+
+def pcd_gather_tables(ctx):
+    """The gather tables that one PCD-FGMRES inner iteration reads: each
+    AMG level's operator (dense levels listed as such) and restriction,
+    and the mixed operator's cell-to-node segment sums."""
+    out = []
+    for amg_name, amg in (("amg_p", ctx.amg), ("amg_u", ctx.amg_u)):
+        for k, lvl in enumerate(amg.levels):
+            A = lvl["A"]
+            if hasattr(A, "cols"):
+                out.append(gather_table(f"{amg_name}[{k}].A", A.cols,
+                                        A.n_cols))
+            else:
+                out.append({"table": f"{amg_name}[{k}].A (dense)",
+                            "rows": A.n_rows, "K": A.n_cols,
+                            "mean_row": float(A.n_cols)})
+            seg = lvl["restrict"]
+            out.append(gather_table(f"{amg_name}[{k}].restrict", seg.table,
+                                    int(np.prod(seg.index_shape))))
+    for name in ("_scatter_u", "_scatter_p"):
+        seg = getattr(ctx.op, name)
+        out.append(gather_table(f"op.{name[1:]}", seg.table,
+                                int(np.prod(seg.index_shape))))
+    return out
+
+
+def gather_forms_ms(cols, k):
+    """Median ms (CUDA events) of three ways to gather the rows of an
+    (n + 1, k) f64 tensor through the padded table ``cols``: advanced
+    indexing of its rows, ``index_select`` on the flat table, and one
+    gather per column of the transposed tensor (the port's form,
+    ``utils.segment.padded_row_sum``)."""
+    n_pad = int(cols.max()) + 1
+    xp = torch.randn(n_pad, k, dtype=torch.float64, device=cols.device)
+    xt = xp.T.contiguous()
+    flat = cols.reshape(-1)
+    forms = {"index": lambda: xp[cols],
+             "index_select": lambda: torch.index_select(xp, 0, flat).view(
+                 cols.shape + (k,)),
+             "per_column": lambda: xt[:, cols]}
+    if not torch.equal(forms["index"](), forms["index_select"]()):
+        raise AssertionError("index_select gathered other values")
+    return {name: time_ms(fn) for name, fn in forms.items()}
+
+
+def profile_pcd_cycle(solver, smi, profile_dir):
+    """torch.profiler tables (by device time, by host time and by input
+    shape) of one short Newton restart cycle of the solver's PCD-FGMRES
+    context, linearized at its solution with the initial state's
+    residual as right-hand side."""
+    from torch.profiler import ProfilerActivity, profile
+
+    op, scalars, source, bc_values, extra = solver._residual_context()
+    x = solver.solution
+    x0 = solver._apply_bc_values_to_x(torch.zeros_like(x))
+    rhs = -op.residual(x0, bc_values, scalars, source, extra)
+    ctx = solver._pcd_ctx
+    # a short cycle: the profiler's tables of the 80-iteration cycle (1.6 M
+    # ops) take minutes to build, and every iteration repeats the same ops
+    restart, ctx.restart = ctx.restart, PCD_PROFILE_ITERATIONS
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     record_shapes=True) as prof:
+            _, _, its = ctx.solve(x, rhs, scalars, source, picard=False,
+                                  tol=1e-12, max_cycles=1)
+            torch.cuda.synchronize()
+    finally:
+        ctx.restart = restart
+    seconds = time.perf_counter() - t0
+    events = prof.key_averages()
+    aten_ops = sum(e.count for e in events if e.key.startswith("aten::"))
+    os.makedirs(profile_dir, exist_ok=True)
+    with open(os.path.join(profile_dir, "profile_newton_cavity.txt"),
+              "w") as f:
+        f.write(f"{smi}\none Newton restart cycle of newton_cavity "
+                f"(PCD-FGMRES, {its} iterations, {seconds:.3f} s profiled, "
+                f"{aten_ops} aten ops)\n")
+        f.write(events.table(sort_by="cuda_time_total", row_limit=25))
+        f.write("\n")
+        f.write(events.table(sort_by="cpu_time_total", row_limit=25))
+        f.write("\nby input shape:\n")
+        f.write(prof.key_averages(group_by_input_shape=True).table(
+            sort_by="cuda_time_total", row_limit=25))
+
+
+def phase_newton_cavity(dev, smi, profile_dir):
+    """The cavity demo as a StationaryProblem at 128^2 with the card's own
+    linear mode: matrix-free PCD + FGMRES + AMG, no factorization."""
+    n, re = NEWTON["cavity_n"], NEWTON["cavity_re"]
+    cuda_band.reset_launch_counts()
+    amg_s = []
+    with tempfile.TemporaryDirectory() as tmp:
+        problem = NewtonCavity(tmp, n, re, device=dev, dtype=torch.float64)
+        problem._write_output = False
+        t0 = time.perf_counter()
+        with timed_pcd_setup(amg_s), contextlib.redirect_stdout(
+                io.StringIO()):
+            _, syncs = count_syncs(problem.solve_problem)
+        seconds = time.perf_counter() - t0
+    launches = dict(cuda_band.LAUNCHES)
+    solver = problem._get_solver()
+    mode = solver._resolved_linear_mode()
+    solves = [r for r in solver.monitor.records
+              if r["kind"] == "nonlinear_solve"]
+    # StationaryProblem falls back to a Reynolds continuation when its
+    # first solve raises; the phase holds the first solve alone
+    if len(solves) != 1:
+        raise AssertionError(
+            f"newton_cavity: {len(solves)} nonlinear solves on record: the "
+            f"first solve at Re {re:g} did not converge and the Reynolds "
+            "continuation ran")
+    rec = dict(solves[0])
+    lin = [r["iterations"] for r in solver.monitor.records
+           if r["kind"] == "linear_solve"]
+    u, _ = solver.space.split(solver.solution)
+    u = u.cpu().numpy()
+    centre = np.abs(solver.space.u_coords[:, 0] - 0.5) < 1e-9
+    u_min = float(u[centre, 0].min())
+    steps = rec["picard_iterations"] + rec["newton_iterations"]
+    # the velocity AMG's finest operator: the largest gather of the cycle
+    level0 = solver._pcd_ctx.amg_u.levels[0]["A"]
+    out = {"phase": "newton_cavity",
+           "config": f"lid-driven cavity {n}^2 Re {re:g} f64 as a "
+                     "StationaryProblem (demo/cavity_flow.py), the card's "
+                     "default linear mode",
+           "dofs": solver.space.n_dofs, "linear_mode": mode,
+           "picard_iterations": rec["picard_iterations"],
+           "newton_iterations": rec["newton_iterations"],
+           "residual": rec["residual"], "u_min_centre_line": u_min,
+           "fgmres_matvecs_per_linear_solve": lin,
+           "fgmres_matvecs_per_newton_step":
+               sum(lin[rec["picard_iterations"]:])
+               / max(rec["newton_iterations"], 1),
+           "host_syncs": syncs, "host_syncs_per_linearized_step":
+               syncs / max(steps, 1),
+           "amg_setup_s": amg_s, "seconds": seconds,
+           "gather_tables": pcd_gather_tables(solver._pcd_ctx),
+           "level0_gather_ms": (gather_forms_ms(level0.cols,
+                                                solver.space.dim)
+                                if hasattr(level0, "cols") else None),
+           "launches": launches, "nvidia_smi": smi}
+    if profile_dir:
+        profile_pcd_cycle(solver, smi, profile_dir)
+    emit(out)
+    bad = [mode != "pcd", not rec["residual"] <= 1e-10,
+           len(lin) != steps,
+           not abs(u_min - GHIA_UMIN[0]) <= GHIA_UMIN[1]]
+    if any(bad):
+        raise AssertionError(f"newton_cavity guards failed: {bad}")
+    return launches
+
+
+def dfg_monolithic_solver(device):
+    """DFG 2D-2 through ImplicitBDFSolver as benchmarks/dfg_monolithic.py
+    runs it: resolution 3, do-nothing outflow, frozen LU, tol 1e-6, the
+    BDF-2 ring seeded from the committed saturated state."""
+    res, dt = NEWTON["bdf_res"], NEWTON["bdf_dt"]
+    mesh, markers, bm = channel_with_cylinder(res)
+
+    def inlet(x):
+        s = x[:, 1] / H_DFG
+        return np.stack([6.0 * s * (1.0 - s), np.zeros(len(x))], axis=1)
+
+    with np.load(NEWTON["bdf_seed"]) as d:
+        if float(d["resolution"]) != res:
+            raise AssertionError("bdf_dfg: seed resolution mismatch")
+        t0 = float(d["t"])
+        u, u_old, p = (np.asarray(d[k], np.float64)
+                       for k in ("u", "u_old", "p"))
+    ts = BDFTimeStepping(t0, t0 + 1.0e6, desired_start_time_step=dt)
+    solver = ImplicitBDFSolver(mesh, markers, "standard", ts, tol=1e-6,
+                               linear_solver="frozen_lu", device=device,
+                               dtype=torch.float64)
+    solver.set_boundary_conditions(
+        ((VelocityBCType.function, bm["inlet"], inlet),
+         (VelocityBCType.no_slip, bm["cylinder"], None),
+         (VelocityBCType.no_slip, bm["upper wall"], None),
+         (VelocityBCType.no_slip, bm["lower wall"], None)))
+    solver.set_equation_coefficients({"convective_term": 1.0,
+                                      "viscous_term": 0.01,
+                                      "pressure_term": 1.0})
+    solver.set_initial_conditions({"velocity": (0.0, 0.0)})
+    x_now = solver._tensor(np.concatenate([u, p]))
+    x_prev = solver._tensor(np.concatenate([u_old, p]))
+    solver._solutions[0] = solver._solutions[1] = x_now
+    solver._solutions[2] = x_prev
+    return solver, ts, bm["cylinder"]
+
+
+def phase_bdf_dfg(dev, smi, profile_dir):
+    """DFG 2D-2 through the monolithic BDF-2 solver on the card, 100 steps
+    with the reaction force every step."""
+    n_steps, dt = NEWTON["bdf_steps"], NEWTON["bdf_dt"]
+    cuda_band.reset_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        solver, ts, cyl = dfg_monolithic_solver(dev)
+    setup_s = time.perf_counter() - t0
+    series = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n_steps):
+        ts.update_coefficients()
+        solver.solve()
+        force = solver.boundary_reaction_force(cyl)
+        series.append((ts.next_time, 2.0 * float(force[0]),
+                       2.0 * float(force[1])))
+        ts.advance_time()
+        solver.advance_time()
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launches = dict(cuda_band.LAUNCHES)
+    its = [r["iterations"] for r in solver.monitor.records
+           if r["kind"] == "nonlinear_solve"]
+    ms = 1e3 * elapsed / n_steps
+    busy = solver_busy(solver, ts, ms)
+    arr = np.asarray(series)
+    out = {"phase": "bdf_dfg",
+           "config": f"DFG 2D-2 Re 100 resolution {NEWTON['bdf_res']:g} "
+                     f"f64 through ImplicitBDFSolver(frozen_lu, tol=1e-6), "
+                     f"dt {dt:g}, seeded at t = {arr[0, 0] - dt:g}",
+           "dofs": solver.space.n_dofs, "steps": n_steps,
+           "ms_per_step": ms,
+           "dof_steps_per_s": n_steps * solver.space.n_dofs / elapsed,
+           "newton_iterations_per_step": float(np.mean(its[:n_steps])),
+           "newton_iterations_max": int(max(its[:n_steps])),
+           "lu_factorizations": solver.lu_factorizations,
+           "c_D_range": [float(arr[:, 1].min()), float(arr[:, 1].max())],
+           "c_L_range": [float(arr[:, 2].min()), float(arr[:, 2].max())],
+           "setup_s": setup_s, "busy": busy, "launches": launches,
+           "nvidia_smi": smi}
+    if profile_dir:
+        os.makedirs(profile_dir, exist_ok=True)
+        np.savetxt(os.path.join(profile_dir, "bdf_dfg_forces.csv"), arr,
+                   delimiter=",", header="t,c_D,c_L")
+        write_profile(lambda: advance(solver, ts), smi, profile_dir,
+                      "profile_bdf_dfg.txt",
+                      "monolithic BDF-2 steps of bdf_dfg (frozen LU)")
+    emit(out)
+    g = BDF_GUARDS
+    bad = [not (g["cd"][0] <= arr[:, 1].min()
+                and arr[:, 1].max() <= g["cd"][1]),
+           not (g["cl"][0] <= arr[:, 2].min()
+                and arr[:, 2].max() <= g["cl"][1]),
+           len(its) < n_steps]
+    if any(bad):
+        raise AssertionError(f"bdf_dfg guards failed: {bad}")
+    return launches
+
+
+def cavity_transient(cls_name, scheme, device, n, steps, **kw):
+    """The lid-driven cavity at Re 100 from rest through one transient
+    solver, ``steps`` steps of 0.02."""
+    from navierstokes_tpu_torch import solvers, timestepping
+
+    mesh, markers, bcs = lid_driven_cavity_setup(n)
+    if cls_name == "ThetaSolver":
+        ts = timestepping.GeneralThetaTimeStepping(
+            0.0, 1.0, getattr(timestepping.ThetaTimeSteppingType, scheme),
+            desired_start_time_step=0.02)
+    elif cls_name == "IMEXSolver":
+        ts = timestepping.IMEXTimeStepping(
+            0.0, 1.0, getattr(timestepping.IMEXType, scheme),
+            desired_start_time_step=0.02)
+    else:
+        ts = BDFTimeStepping(0.0, 1.0, desired_start_time_step=0.02)
+    solver = getattr(solvers, cls_name)(mesh, markers, "standard", ts,
+                                        device=device, dtype=torch.float64,
+                                        **kw)
+    solver.set_boundary_conditions(bcs)
+    solver.set_equation_coefficients({"convective_term": 1.0,
+                                      "viscous_term": 0.01,
+                                      "pressure_term": 1.0})
+    solver.set_initial_conditions({"velocity": (0.0, 0.0)})
+    advance(solver, ts, steps)
+    return solver
+
+
+def cavity_stationary(mode, device, n):
+    mesh, markers, bcs = lid_driven_cavity_setup(n)
+    solver = StationarySolver(mesh, markers, linear_solver=mode,
+                              device=device, dtype=torch.float64)
+    solver.set_boundary_conditions(bcs)
+    solver.set_equation_coefficients({"convective_term": 1.0,
+                                      "viscous_term": 0.01,
+                                      "pressure_term": 1.0})
+    solver.solve()
+    return solver
+
+
+def phase_newton_parity(dev):
+    """f64, the card against the CPU at 12^2: the stationary solver in
+    its three linear modes and 5 steps of each transient solver; a second
+    card run of every direct path must repeat the first bit for bit."""
+    n, steps = NEWTON["parity_n"], NEWTON["parity_steps"]
+    cases = {"stationary_dense": (True, "dense"),
+             "stationary_host_lu": (True, "host_lu"),
+             "stationary_pcd": (False, "pcd"),
+             "bdf_host_lu": (True, ("ImplicitBDFSolver", None,
+                                    {"linear_solver": "host_lu"})),
+             "bdf_frozen_lu": (True, ("ImplicitBDFSolver", None,
+                                      {"linear_solver": "frozen_lu"})),
+             "theta_crank_nicolson": (True, ("ThetaSolver", "CrankNicolson",
+                                             {"linear_solver": "host_lu"})),
+             "imex_sbdf2": (True, ("IMEXSolver", "SBDF2",
+                                   {"linear_solver": "host_lu"})),
+             "ipcs": (False, ("IPCSSolver", None, {}))}
+    cuda_band.reset_launch_counts()
+    out, bad = {}, []
+    saved = os.environ.get("NS_TPU_FGMRES_RESTART")
+    # restart cycles of 20: the default 80 costs the CPU side minutes
+    os.environ["NS_TPU_FGMRES_RESTART"] = str(NEWTON["parity_restart"])
+    try:
+        for name, (direct, spec) in cases.items():
+            t0 = time.perf_counter()
+            runs = []
+            for where in ((dev, dev, "cpu") if direct else (dev, "cpu")):
+                with contextlib.redirect_stdout(io.StringIO()):
+                    runs.append(
+                        cavity_stationary(spec, where, n)
+                        if isinstance(spec, str) else
+                        cavity_transient(spec[0], spec[1], where, n, steps,
+                                         **spec[2]))
+            counts = [[r.get("iterations") for r in s.monitor.records
+                       if r["kind"] == "nonlinear_solve"] for s in runs]
+            card, cpu = runs[0].solution.cpu(), runs[-1].solution
+            err = rel_err(card, cpu)
+            row = {"rel_err": err, "newton_counts_equal":
+                   counts[0] == counts[-1], "seconds":
+                   time.perf_counter() - t0}
+            if direct:
+                row["rerun_bitwise"] = bool(torch.equal(
+                    runs[0].solution, runs[1].solution))
+            out[name] = row
+            tol = 1e-10 if direct else 1e-8
+            if not err <= tol or counts[0] != counts[-1] or \
+                    not row.get("rerun_bitwise", True):
+                bad.append(name)
+    finally:
+        if saved is None:
+            os.environ.pop("NS_TPU_FGMRES_RESTART")
+        else:
+            os.environ["NS_TPU_FGMRES_RESTART"] = saved
+    launches = dict(cuda_band.LAUNCHES)
+    emit({"phase": "newton_parity",
+          "config": f"cavity {n}^2 Re 100 f64, card vs CPU; transient "
+                    f"solvers {steps} steps of 0.02; pcd restart "
+                    f"{NEWTON['parity_restart']}",
+          "cases": out, "launches": launches})
+    if bad:
+        raise AssertionError(f"newton_parity failed: {bad}")
+    return launches
+
+
+GROUPS = ("kernels", "structured", "solver", "problems", "newton")
 
 
 def main():
@@ -1989,6 +2680,12 @@ def main():
                                                          args.profile)
         by_path["dfg"] = phase_dfg(dev, smi, args.profile)
         by_path["dfg_parity"] = phase_dfg_parity(dev)
+    if "newton" in groups:
+        by_path["newton_dfg"] = phase_newton_dfg(dev, smi, args.profile)
+        by_path["newton_cavity"] = phase_newton_cavity(dev, smi,
+                                                       args.profile)
+        by_path["bdf_dfg"] = phase_bdf_dfg(dev, smi, args.profile)
+        by_path["newton_parity"] = phase_newton_parity(dev)
 
     emit({"phase": "total", "seconds": time.perf_counter() - t_start,
           "groups": sorted(groups)})
@@ -1998,7 +2695,11 @@ def main():
         # dfg holds no circulant operator at resolution 3 (every square
         # operator is an AffineBand under the RCM order); at resolution 1
         # (dfg_parity) the RCM bands of L and Mp fit the circulant cap
-        on_path = {"circulant_apply": [p for p in by_path if p != "dfg"],
+        # the Newton group's paths apply no band operator: their counts
+        # are reported (0 expected) and not required
+        newton = ("newton_dfg", "newton_cavity", "bdf_dfg", "newton_parity")
+        on_path = {"circulant_apply": [p for p in by_path
+                                       if p != "dfg" and p not in newton],
                    "circulant_pcg": ["main", "solver_cavity_kernels"]}
         for name, paths in on_path.items():
             for path in paths:

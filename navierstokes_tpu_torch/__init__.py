@@ -4,9 +4,11 @@ The port mirrors the JAX package's module paths so that each function has
 an obvious counterpart.  Ported so far are the two projection steps (the
 generic banded SBDF-2 step on 2D structured boxes, periodic or
 wall-bounded; the structured spectral step in 2D and 3D), the
-time-stepping bookkeeping and, on top of them, the product solver API for
-transient flow (``ProjectionSolver`` with boundary conditions,
-coefficients, initial conditions and checkpoints):
+time-stepping bookkeeping, the product solver API for transient flow
+(``ProjectionSolver`` with boundary conditions, coefficients, initial
+conditions and checkpoints), the application layer, and the Newton and
+monolithic stack (stationary Picard->Newton, monolithic BDF, theta, IMEX
+and IPCS solvers with direct and PCD-FGMRES linear solves):
 
     mesh/        ``hyper_cube`` / ``hyper_rectangle`` (2D and 3D), the
                  mesh topology and its facet geometry
@@ -17,12 +19,19 @@ coefficients, initial conditions and checkpoints):
                  formats (``fastop``: circulant and affine bands, stencil
                  and gather couplings), the two hand-written CUDA band
                  kernels (``cuda_band``, sources in ``csrc/band.cu``), the
-                 element kernels and ``MixedOperator``'s forward subset
-    linalg/      conjugate gradients and the smoothed-aggregation AMG
+                 element kernels and their Jacobians, the operators
+                 (``MixedOperator``, ``VelocityOperator``), static CSR
+                 assembly (``sparse``) and the host f64 residual
+    linalg/      Krylov solvers, FGMRES, direct solves, the Newton loop,
+                 the smoothed-aggregation AMG and the PCD preconditioners
     solvers/     the planar projection step (``planar_step``), the solver
-                 bases and ``ProjectionSolver``
-    problems/    dimensionless coefficients and rotating frames
-    io/          checkpoints (the JAX package's ``.npz`` layout)
+                 bases, ``ProjectionSolver``, ``StationarySolver``,
+                 ``ImplicitBDFSolver``, ``ThetaSolver``, ``IMEXSolver``,
+                 ``IPCSSolver``
+    problems/    the Problem classes, postprocessing, dimensionless
+                 coefficients and rotating frames
+    io/          checkpoints (the JAX package's ``.npz`` layout), field
+                 output
     utils/       the solver monitor and fixed-order segment sums
     structured/  class grids of a periodic structured space (``grid``),
                  stencil applies and convection (``ops``), the DFT

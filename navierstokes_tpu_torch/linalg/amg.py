@@ -6,7 +6,9 @@ on the device: every level's operator is a row-wise padded gather table
 (``_DeviceCSR``) or a small dense matrix, smoothing is weighted Jacobi,
 the transfers are an aggregation gather and a fixed-order segment sum, and
 the coarsest level is a precomputed dense pseudo-inverse.  No step of the
-cycle uses atomics, so it gives the same bits on every run.
+cycle uses atomics, so it gives the same bits on every run.  ``apply``
+takes one right-hand side (n,) or several as the columns of (n, k): one
+V-cycle for all of them.
 """
 
 from __future__ import annotations
@@ -19,7 +21,13 @@ import torch
 
 from navierstokes_tpu_torch import config
 from navierstokes_tpu_torch.utils.segment import (SegmentSum,
-                                                   ell_from_sorted_coo)
+                                                   ell_from_sorted_coo,
+                                                   padded_row_sum, take_rows)
+
+
+def _columns(v, x):
+    """The (n,) vector ``v`` shaped to scale the rows of ``x``."""
+    return v.view(v.shape + (1,) * (x.dim() - 1))
 
 
 class _DeviceCSR:
@@ -39,8 +47,7 @@ class _DeviceCSR:
                                  device=device)
 
     def matvec(self, x):
-        xp = torch.cat([x, x.new_zeros(1)])
-        return (self.vals * xp[self.cols]).sum(dim=1)
+        return padded_row_sum(self.cols, x, self.vals)
 
 
 class _DeviceDense:
@@ -147,10 +154,14 @@ class AMG:
             # aggregation gather / segment sum.  Levels at or below
             # ``dense_level_cap`` rows store A densely.
             dense = A.shape[0] <= dense_level_cap
+            dinv_dev = torch.tensor(dinv, dtype=dtype, device=device)
             self.levels.append({
                 "A": (_DeviceDense(A, dtype, device) if dense
                       else _DeviceCSR(A, dtype, device)),
-                "dinv": torch.tensor(dinv, dtype=dtype, device=device),
+                "dinv": dinv_dev,
+                # the products the cycle applies, in its evaluation order
+                "wdinv": self.w * dinv_dev,
+                "cdinv": float(c) * dinv_dev,
                 "agg": torch.as_tensor(agg, device=device),
                 "restrict": SegmentSum(agg, n_agg, device),
                 "c": float(c),
@@ -165,15 +176,17 @@ class AMG:
         self.n = A_scipy.shape[0]
 
     def _smooth(self, lvl, x, b, n_sweeps):
+        wdinv = _columns(lvl["wdinv"], b)
         for _ in range(n_sweeps):
-            x = x + self.w * lvl["dinv"] * (b - lvl["A"].matvec(x))
+            x = x + wdinv * (b - lvl["A"].matvec(x))
         return x
 
     def _vcycle(self, k, b):
         if k == len(self.levels):
             return self.coarse_inv @ b
         lvl = self.levels[k]
-        A, dinv, agg, c = lvl["A"], lvl["dinv"], lvl["agg"], lvl["c"]
+        A, agg, c = lvl["A"], lvl["agg"], lvl["c"]
+        dinv = _columns(lvl["dinv"], b)
         x = self._smooth(lvl, torch.zeros_like(b), b, self.pre_smooth)
         r = b - A.matvec(x)
         # R r = P0^T (I - c A D^-1) r  (A symmetric)
@@ -181,12 +194,13 @@ class AMG:
         rc = lvl["restrict"](rs)
         xc = self._vcycle(k + 1, rc)
         # P xc = (I - c D^-1 A) P0 xc
-        y = xc[agg]
-        x = x + (y - c * dinv * A.matvec(y))
+        y = take_rows(xc, agg)
+        x = x + (y - _columns(lvl["cdinv"], b) * A.matvec(y))
         return self._smooth(lvl, x, b, self.post_smooth)
 
     def apply(self, r):
-        """One V-cycle: approximate A^{-1} r."""
+        """One V-cycle: approximate A^{-1} r for r (n,) or each column of
+        r (n, k)."""
         return self._vcycle(0, r)
 
     def solve(self, b, x0=None, tol=1e-12, maxiter=200):

@@ -1,10 +1,20 @@
 """Krylov solvers on torch tensors (counterpart of
 ``navierstokes_tpu/linalg/krylov.py``).
 
-The conjugate-gradient solve of the SPD sub-problems (mass-matrix
-projections, the AMG-preconditioned solve), its Jacobi preconditioner and
-the Dirichlet-masked SPD solve are ported; ``bicgstab`` and ``gmres``
-come with the Newton stack and raise ``NotImplementedError`` until then.
+CG for the SPD sub-problems (pressure Poisson, mass matrices), BiCGStab
+and restarted GMRES for nonsymmetric systems.  All accept a ``CSRMatrix``,
+a dense matrix or a matvec callable.
+
+The loops, updates and stopping rules are those of
+``jax.scipy.sparse.linalg`` (``cg``, ``bicgstab``, ``gmres`` with
+``solve_method="batched"``).  A loop whose stopping test can end it early
+reads the test on the host once per iteration (once per restart cycle for
+GMRES).  A fixed sweep (``tol = atol = 0``, as the block preconditioners
+run them) never reads: every iteration runs, and one that the reference
+would skip (an exactly zero residual, a breakdown) leaves the state as it
+was, so the result is the reference's without a host synchronisation.
+The ``*_solve`` functions return the solution alone; ``cg``, ``bicgstab``
+and ``gmres`` add the final residual norm ``||b - A x||``.
 """
 
 from __future__ import annotations
@@ -21,6 +31,39 @@ def _as_matvec(A):
     return lambda x: A @ x
 
 
+def _identity(x):
+    return x
+
+
+def _norm(x):
+    return torch.sqrt(torch.dot(x, x))
+
+
+def _atol2(tol, atol, b):
+    """``max(tol^2 ||b||^2, atol^2)`` as a Python float (no read of ``b``
+    for a fixed sweep)."""
+    if tol == 0:
+        return float(atol) ** 2
+    return max(float(tol) ** 2 * float(torch.sum(b * b)), float(atol) ** 2)
+
+
+def _loop(cond, body, state, maxiter, fixed):
+    """``while cond(state): state = body(state)``, at most ``maxiter``
+    times.  ``cond`` gives a 0-d bool tensor; ``fixed`` runs every
+    iteration and keeps the old state where ``cond`` is false instead of
+    reading it."""
+    for _ in range(int(maxiter)):
+        active = cond(state)
+        if not fixed:
+            if not bool(active):
+                break
+            state = body(state)
+            continue
+        new = body(state)
+        state = tuple(torch.where(active, a, b) for a, b in zip(new, state))
+    return state
+
+
 def jacobi_preconditioner(diag, floor=1e-30):
     """Inverse-diagonal preconditioner with a zero guard."""
     safe = torch.where(diag.abs() > floor, diag, torch.ones_like(diag))
@@ -28,48 +71,168 @@ def jacobi_preconditioner(diag, floor=1e-30):
     return lambda x: inv * x
 
 
-def cg(A, b, x0=None, tol=1e-12, atol=0.0, maxiter=None, M=None):
-    """Preconditioned conjugate gradients.  Returns ``(x, residual_norm)``.
-
-    The loop and its stopping rule are those of
-    ``jax.scipy.sparse.linalg.cg``: it iterates while
+def cg_solve(A, b, x0=None, tol=1e-12, atol=0.0, maxiter=None, M=None):
+    """Preconditioned conjugate gradients: iterate while
     ``||r||^2 > max(tol^2 ||b||^2, atol^2)`` and fewer than ``maxiter``
-    (default ``10 * len(b)``) iterations ran.  The test reads ``||r||^2``
-    on the host once per iteration.
-    """
+    (default ``10 * len(b)``) iterations ran."""
     mv = _as_matvec(A)
+    M = _identity if M is None else M
     if maxiter is None:
         maxiter = 10 * len(b)
     x = torch.zeros_like(b) if x0 is None else x0
-    atol2 = max(float(tol) ** 2 * float(torch.sum(b * b)), float(atol) ** 2)
+    atol2 = _atol2(tol, atol, b)
+    precond = M is not _identity
 
     r = b - mv(x)
-    p = z = r if M is None else M(r)
-    gamma = torch.sum(r * z)
-    for _ in range(int(maxiter)):
-        rs = gamma if M is None else torch.sum(r * r)
-        if not float(rs) > atol2:
-            break
+    z = M(r)
+    state = (x, r, z, torch.sum(r * z))
+
+    def cond(state):
+        _, r, _, gamma = state
+        rs = torch.sum(r * r) if precond else gamma
+        return rs.double() > atol2
+
+    def body(state):
+        x, r, p, gamma = state
         Ap = mv(p)
         alpha = gamma / torch.sum(p * Ap)
         x = x + alpha * p
         r = r - alpha * Ap
-        z = r if M is None else M(r)
+        z = M(r)
         gamma_new = torch.sum(r * z)
-        p = z + (gamma_new / gamma) * p
-        gamma = gamma_new
-    return x, torch.linalg.vector_norm(b - mv(x))
+        return x, r, z + (gamma_new / gamma) * p, gamma_new
+
+    return _loop(cond, body, state, maxiter, tol == 0 and atol == 0)[0]
+
+
+def cg(A, b, x0=None, tol=1e-12, atol=0.0, maxiter=None, M=None):
+    """:func:`cg_solve`; returns ``(x, residual_norm)``."""
+    x = cg_solve(A, b, x0, tol, atol, maxiter, M)
+    return x, torch.linalg.vector_norm(b - _as_matvec(A)(x))
+
+
+def bicgstab_solve(A, b, x0=None, tol=1e-12, atol=0.0, maxiter=None,
+                   M=None):
+    """Preconditioned BiCGStab with the breakdown exits of
+    ``jax.scipy.sparse.linalg.bicgstab``."""
+    mv = _as_matvec(A)
+    M = _identity if M is None else M
+    if maxiter is None:
+        maxiter = 10 * len(b)
+    x = torch.zeros_like(b) if x0 is None else x0
+    atol2 = _atol2(tol, atol, b)
+
+    r0 = b - mv(x)
+    one = torch.ones((), dtype=b.dtype, device=b.device)
+    k0 = torch.zeros((), dtype=torch.int64, device=b.device)
+    state = (x, r0, r0, one, one, one, r0, r0, k0)
+
+    def cond(state):
+        r, k = state[1], state[-1]
+        return (torch.dot(r, r) > atol2) & (k < maxiter) & (k >= 0)
+
+    def body(state):
+        x, r, rhat, alpha, omega, rho, p, q, k = state
+        rho_ = torch.dot(rhat, r)
+        beta = rho_ / rho * alpha / omega
+        p_ = r + beta * (p - omega * q)
+        phat = M(p_)
+        q_ = mv(phat)
+        alpha_ = rho_ / torch.dot(rhat, q_)
+        s = r - alpha_ * q_
+        exit_early = torch.dot(s, s) < atol2
+        shat = M(s)
+        t = mv(shat)
+        omega_ = torch.dot(t, s) / torch.dot(t, t)
+        x_ = torch.where(exit_early, x + alpha_ * phat,
+                         x + (alpha_ * phat + omega_ * shat))
+        r_ = torch.where(exit_early, s, s - omega_ * t)
+        k_ = torch.where((omega_ == 0) | (alpha_ == 0), -11, k + 1)
+        k_ = torch.where(rho_ == 0, -10, k_)
+        return x_, r_, rhat, alpha_, omega_, rho_, p_, q_, k_
+
+    return _loop(cond, body, state, maxiter, tol == 0 and atol == 0)[0]
 
 
 def bicgstab(A, b, x0=None, tol=1e-12, atol=0.0, maxiter=None, M=None):
-    raise NotImplementedError(
-        "krylov.bicgstab is not ported yet (ROADMAP item 13)")
+    """:func:`bicgstab_solve`; returns ``(x, residual_norm)``."""
+    x = bicgstab_solve(A, b, x0, tol, atol, maxiter, M)
+    return x, torch.linalg.vector_norm(b - _as_matvec(A)(x))
+
+
+def _safe_normalize(x, thresh=None):
+    norm = _norm(x)
+    if thresh is None:
+        thresh = torch.finfo(x.dtype).eps
+    use = norm > thresh
+    return torch.where(use, x / norm, 0.0), torch.where(use, norm, 0.0)
+
+
+def _gmres_cycle(mv, M, b, x0, unit_residual, residual_norm, restart):
+    """One restart of left-preconditioned GMRES: an Arnoldi basis of
+    ``restart`` vectors (one classical Gram-Schmidt pass, as the
+    reference's ``_iterative_classical_gram_schmidt`` with
+    ``max_iterations=2`` runs), then the small least-squares problem by
+    normal equations and Cholesky.  After a breakdown the remaining
+    iterations leave the basis and H as the reference leaves them."""
+    n = b.shape[0]
+    eps = torch.finfo(b.dtype).eps
+    V = b.new_zeros((restart + 1, n))
+    V[0] = unit_residual
+    H = torch.eye(restart, restart + 1, dtype=b.dtype, device=b.device)
+    done = torch.zeros((), dtype=torch.bool, device=b.device)
+    for k in range(restart):
+        v = M(mv(V[k]))
+        _, v_norm_0 = _safe_normalize(v)
+        h = V @ v
+        v = v - h @ V
+        unit_v, v_norm_1 = _safe_normalize(v, thresh=eps * v_norm_0)
+        h[k + 1] = v_norm_1
+        V[k + 1] = torch.where(done, V[k + 1], unit_v)
+        H[k] = torch.where(done, H[k], h)
+        done = done | (v_norm_1 == 0.0)
+    beta = torch.zeros(restart + 1, dtype=b.dtype, device=b.device)
+    beta[0] = residual_norm
+    L, _ = torch.linalg.cholesky_ex(H @ H.T)
+    y = torch.cholesky_solve((H @ beta)[:, None], L)[:, 0]
+    x = x0 + y @ V[:-1]
+    unit_residual, residual_norm = _safe_normalize(M(b - mv(x)))
+    return x, unit_residual, residual_norm
+
+
+def gmres_solve(A, b, x0=None, tol=1e-5, atol=0.0, restart=20,
+                maxiter=None, M=None):
+    """Restarted GMRES with the semantics of ``jax.scipy.sparse.linalg.
+    gmres(..., solve_method="batched")``: restart cycles run while the
+    preconditioned residual norm exceeds ``max(tol ||b||, atol)``, at most
+    ``maxiter`` (default ``10 * len(b)``) of them."""
+    mv = _as_matvec(A)
+    M = _identity if M is None else M
+    size = b.shape[0]
+    if maxiter is None:
+        maxiter = 10 * size
+    restart = min(restart, size)
+    x = torch.zeros_like(b) if x0 is None else x0
+    atol_ = torch.clamp(tol * _norm(b), min=atol)
+    state = (x,) + _safe_normalize(M(b - mv(x)))
+
+    def cond(state):
+        return state[2] > atol_
+
+    def body(state):
+        return _gmres_cycle(mv, M, b, *state, restart)
+
+    return _loop(cond, body, state, maxiter, tol == 0 and atol == 0)[0]
 
 
 def gmres(A, b, x0=None, tol=1e-12, atol=0.0, maxiter=None, restart=60,
           M=None):
-    raise NotImplementedError(
-        "krylov.gmres is not ported yet (ROADMAP item 13)")
+    """:func:`gmres_solve` with ``maxiter`` defaulting to
+    ``20 * max(1, len(b) // restart)``; returns ``(x, residual_norm)``."""
+    if maxiter is None:
+        maxiter = 20 * max(1, len(b) // restart)
+    x = gmres_solve(A, b, x0, tol, atol, restart, maxiter, M)
+    return x, torch.linalg.vector_norm(b - _as_matvec(A)(x))
 
 
 def masked_spd_solve(A_fn, b, bc_mask, bc_values, tol=1e-12, maxiter=None,

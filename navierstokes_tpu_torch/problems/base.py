@@ -9,10 +9,9 @@ checkpoints are the JAX package's.
 The port adds keyword-only arguments the JAX classes do not need:
 ``device`` and ``dtype`` (where the solver's state lives: the card by
 default, the CPU only when asked for) and ``solver_options`` (further
-keywords of the solver class, e.g. ``cg_rtol``).  ``_output_format``
-picks the field-output format (None: XDMF when ``h5py`` imports, else
-PVD).  ``StationaryProblem`` raises ``NotImplementedError`` where it would
-build a ``StationarySolver`` (ROADMAP item 14).
+keywords of the solver class, e.g. ``cg_rtol`` or ``linear_solver``).
+``_output_format`` picks the field-output format (None: XDMF when
+``h5py`` imports, else PVD).
 """
 
 from __future__ import annotations
@@ -187,19 +186,20 @@ class ProblemBase:
 
 
 class StationaryProblem(ProblemBase):
-    """A stationary problem: the hook sequence of the JAX package's
-    ``StationaryProblem``; building its ``StationarySolver`` raises until
-    the Newton stack is ported (ROADMAP item 14)."""
+    """Stationary problem with a Reynolds continuation fallback:
+    the hook sequence, the ``StationarySolver`` and -- on solver failure
+    -- the mixed log/linear Reynolds ramp re-solve."""
 
     def __init__(self, main_dir=None, form_convective_term="standard",
                  tol=None, maxiter=50, tol_picard=1e-2, maxiter_picard=10,
-                 *, device=None, dtype=None):
+                 *, device=None, dtype=None, solver_options=None):
         super().__init__(main_dir, device=device, dtype=dtype)
         self._form_convective_term = form_convective_term
         self._tol = tol
         self._maxiter = maxiter
         self._tol_picard = tol_picard
         self._maxiter_picard = maxiter_picard
+        self._solver_options = dict(solver_options or {})
         self._p_deg = 1
 
     def solve_problem(self):
@@ -222,9 +222,62 @@ class StationaryProblem(ProblemBase):
             assert hasattr(self, "_periodic_bcs")
         if hasattr(self, "_internal_constraints"):
             assert hasattr(self, "_bcs")
-        raise NotImplementedError(
-            "StationaryProblem needs the StationarySolver (Picard/Newton), "
-            "which is not ported yet (ROADMAP item 14)")
+
+        if not hasattr(self, "_navier_stokes_solver"):
+            # imported here: the solvers import problems.rotation, and
+            # this package's __init__ imports this module
+            from navierstokes_tpu_torch.solvers.stationary import \
+                StationarySolver
+
+            self._navier_stokes_solver = StationarySolver(
+                self._mesh, self._boundary_markers,
+                self._form_convective_term, self._tol, self._maxiter,
+                self._tol_picard, self._maxiter_picard, device=self._device,
+                dtype=self._dtype, **self._solver_options)
+        solver = self._navier_stokes_solver
+
+        if hasattr(self, "_periodic_bcs"):
+            solver.set_periodic_boundary_conditions(
+                self._periodic_bcs, self._periodic_boundary_ids)
+        if hasattr(self, "_angular_velocity"):
+            solver.set_angular_velocity(self._angular_velocity)
+        if hasattr(self, "_internal_constraints"):
+            solver.set_boundary_conditions(self._bcs,
+                                           self._internal_constraints)
+        elif hasattr(self, "_bcs"):
+            solver.set_boundary_conditions(self._bcs)
+        solver.set_equation_coefficients(
+            self._coefficient_handler.equation_coefficients)
+        if hasattr(self, "_body_force"):
+            solver.set_body_force(self._body_force)
+
+        try:
+            print("Solving problem")
+            solver.solve()
+            self.postprocess_solution()
+            self._write_xdmf_file()
+            return
+        except (RuntimeError, AssertionError):
+            pass
+
+        # Reynolds parameter continuation
+        print("Solving problem with parameter continuation...")
+        final_re = self._coefficient_handler.Re
+        assert final_re is not None
+        log_range = np.logspace(np.log10(10.0), np.log10(final_re), num=8,
+                                endpoint=True)
+        lin_range = np.linspace(log_range[-2], final_re, num=8,
+                                endpoint=True)
+        for Re in np.concatenate((log_range[:-2], lin_range)):
+            self._coefficient_handler.modify_dimensionless_number(
+                "Re", float(Re))
+            solver.set_equation_coefficients(
+                self._coefficient_handler.equation_coefficients)
+            print(f"Solving problem with Re = {Re:.2f}")
+            solver.solve()
+
+        self.postprocess_solution()
+        self._write_xdmf_file()
 
 
 class InstationaryProblem(ProblemBase):

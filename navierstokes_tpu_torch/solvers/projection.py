@@ -19,7 +19,7 @@ weights eta = (1 + omega, -omega).
 
 Not ported yet: the domain-decomposed halo step (``device_mesh`` with more
 than one device, ROADMAP item 15) and the per-cell fallback step for
-meshes no banded format can hold (ROADMAP item 14); both raise
+meshes no banded format can hold (ROADMAP item 14a); both raise
 ``NotImplementedError``.
 """
 
@@ -189,7 +189,7 @@ class ProjectionSolver(InstationarySolverBase):
             raise NotImplementedError(
                 "no banded format holds this mesh, and the per-cell "
                 "fallback step (solvers/fused_step.py) is not ported yet "
-                "(ROADMAP item 14)") from exc
+                "(ROADMAP item 14a)") from exc
         self._body_rhs = None
         if self._has_body_force():
             self._body_rhs = self._fast.interleaved_to_planar(

@@ -6,6 +6,11 @@ are fixed at setup (a sparse matrix's rows, the nodes of each cell, the
 aggregate of each node), so the indices are sorted once on the host into a
 row-wise padded table; the sum is then a gather through the table and a
 reduction over its last axis, in the same order on every run.
+
+Values with trailing axes are gathered one trailing column at a time
+(:func:`take_rows`): on the card torch gathers rows of a few elements with
+one thread block per index, about 25 times slower than the same indices
+gathered column by column (two f64 columns, 1.25 M indices, on an H100).
 """
 
 from __future__ import annotations
@@ -29,6 +34,30 @@ def ell_from_sorted_coo(rows, cols, n_rows, pad):
     table = np.full((n_rows, K), pad, dtype=np.int64)
     table[rows, within] = cols
     return table, rows * K + within
+
+
+def take_rows(x, index):
+    """``x[index]`` for ``x`` of shape (m,) + tail, gathered one trailing
+    column at a time."""
+    if x.dim() == 1:
+        return x[index]
+    cols = x.reshape(x.shape[0], -1).T.contiguous()
+    return cols[:, index].movedim(0, -1).reshape(
+        tuple(index.shape) + tuple(x.shape[1:]))
+
+
+def padded_row_sum(table, x, weights=None):
+    """``sum_j weights[i, j] * xp[table[i, j]]`` over each row ``i`` of a
+    padded gather table, where ``xp`` is ``x`` (shape (m,) + tail) with a
+    zero row appended at index m; the sum runs over the table's last axis
+    for every trailing column, in the same order."""
+    if x.dim() == 1:
+        g = torch.nn.functional.pad(x, (0, 1))[table]
+        return (g if weights is None else weights * g).sum(dim=1)
+    columns = x.reshape(x.shape[0], -1).T
+    g = torch.nn.functional.pad(columns, (0, 1))[:, table]
+    out = (g if weights is None else weights * g).sum(dim=-1)
+    return out.T.reshape((table.shape[0],) + tuple(x.shape[1:]))
 
 
 class SegmentSum:
@@ -55,6 +84,4 @@ class SegmentSum:
             raise ValueError(f"values of shape {tuple(vals.shape)} do not "
                              f"match the index shape {self.index_shape}")
         tail = tuple(vals.shape[k:])
-        flat = vals.reshape((-1,) + tail)
-        padded = torch.cat([flat, flat.new_zeros((1,) + tail)], dim=0)
-        return padded[self.table].sum(dim=1)
+        return padded_row_sum(self.table, vals.reshape((-1,) + tail))

@@ -112,6 +112,13 @@ def test_hierarchy_equal_and_vcycle_matches(kind, kw):
                                atol=ATOL)
     x = t.apply(torch.tensor(r))
     assert torch.equal(x, t.apply(torch.tensor(r)))   # no atomics
+    # several right-hand sides in one V-cycle (gathered column by column)
+    rr = np.stack([r, np.random.default_rng(3).standard_normal(len(r))], 1)
+    xx = t.apply(torch.tensor(rr))
+    for c in range(2):
+        np.testing.assert_allclose(xx[:, c].numpy(),
+                                   t.apply(torch.tensor(rr[:, c])).numpy(),
+                                   rtol=0, atol=ATOL)
 
 
 def test_amg_solve_matches():

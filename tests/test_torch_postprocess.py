@@ -119,8 +119,8 @@ def test_pressure_poisson_operator(name):
            jpo.rhs_grad_dot_gradq(jnp.asarray(g.numpy())))
     v = g[..., 1]
     _close(tpo.rhs_scalar(v), jpo.rhs_scalar(jnp.asarray(v.numpy())))
-    with pytest.raises(NotImplementedError, match="ROADMAP item 9b"):
-        tpo.convection_matvec(pt, g)
+    _close(tpo.convection_matvec(pt, g),
+           jpo.convection_matvec(pj, jnp.asarray(g.numpy())))
 
 
 def test_masked_spd_solve_and_jacobi():

@@ -12,7 +12,7 @@ CPU, float64, both packages through their Problem classes:
   array by array (1e-9; the XDMF text byte for byte).
 * A checkpoint written by the problem resumes on the same trajectory, bit
   for bit.
-* ``StationaryProblem`` raises ``NotImplementedError`` naming its item.
+* ``StationaryProblem`` solves the cavity to the JAX package's solution.
 """
 
 import os
@@ -28,6 +28,8 @@ from navierstokes_tpu.io import output as jax_output
 from navierstokes_tpu.mesh import hyper_cube as jax_hyper_cube
 from navierstokes_tpu.problems import EquationCoefficientHandler as JaxCoeffs
 from navierstokes_tpu.problems import InstationaryProblem as JaxProblem
+from navierstokes_tpu.problems import \
+    StationaryProblem as JaxStationaryProblem
 from navierstokes_tpu.solvers import ProjectionSolver as JaxSolver
 from navierstokes_tpu_torch import setups
 from navierstokes_tpu_torch.io import load_checkpoint
@@ -196,9 +198,32 @@ class _Stationary(StationaryProblem):
         self._coefficient_handler = EquationCoefficientHandler(Re=10.0)
 
 
+def _mkdir(path):
+    path.mkdir(parents=True, exist_ok=True)
+    return path
+
+
+class _JaxStationary(JaxStationaryProblem):
+    def setup_mesh(self):
+        self._mesh, self._boundary_markers = jax_hyper_cube(2, 4)
+        self._bcs = _jax_bcs(setups.lid_driven_cavity_setup(4)[2])
+
+    def set_equation_coefficients(self):
+        self._coefficient_handler = JaxCoeffs(Re=10.0)
+
+
 def test_stationary_problem_names_its_item(tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP item 14"):
-        _Stationary(str(tmp_path), device="cpu").solve_problem()
+    """(The name dates from when it raised naming ROADMAP item 14.)  The
+    cavity 4x4 at Re 10 as a ``StationaryProblem`` solves to the JAX
+    package's solution (dense LU on both sides)."""
+    t = _Stationary(str(_mkdir(tmp_path / "t")), device="cpu")
+    j = _JaxStationary(str(_mkdir(tmp_path / "j")))
+    t._write_output = j._write_output = False
+    t.solve_problem()
+    j.solve_problem()
+    got = t._get_solver().solution.numpy()
+    want = np.asarray(j._get_solver().solution)
+    assert np.abs(got - want).max() <= 1e-9 * np.abs(want).max()
 
 
 def test_problem_defaults_to_the_card(tmp_path):
