@@ -14,7 +14,11 @@ non-zero):
                routes (cluster, and grid with a resident and a streamed
                band; masked and mean-free cases on each; two planes,
                masked and not, on the cluster route in both dtypes), with
-               each case's route.
+               each case's route; and both at the 3D cavity's shapes
+               (24^3: the apply on three planes with K = 65 and on one
+               with K = 15, the velocity PCG B = 3, K = 65 streamed on
+               route B, masked and not, the mean-free Poisson K = 15 on
+               route A).
 4. main     -- the generic banded SBDF-2 projection step on the periodic
                Taylor-Green vortex at 128^2, f32, configured as bench.py's
                generic path: Re = 100, dt = 1e-3, cg_iters = (10, 60, 6),
@@ -149,17 +153,55 @@ non-zero):
                IPCS solvers; direct paths <= 1e-10, iterative <= 1e-8,
                equal Newton counts, a second card run of every direct path
                bit for bit.
-22. the total seconds, the ``kernels`` line, then the card's nvidia-smi
+22. cavity3d -- the 3D lid-driven cavity at 24^3 cells (368,572 DoFs;
+               the lid (1, 0, 0) on top, no slip elsewhere), Re = 100, dt =
+               0.25 / 48, f32, through ProjectionSolver with the solver's
+               defaults: 4 warm-up and 20 timed steps.  Requires
+               step_kind "fast" (CirculantBand M, K with 65 offsets, L,
+               Mp with 15), circulant_apply launches, finite state, lid
+               and walls to 1e-6; prints ms/step, DoF-steps/s, launches,
+               busy share, peak memory and the host setup by stage.
+23. cavity3d_kernels -- cavity3d's engine with cg_rtol None, no
+               preconditioner and cg_iters (18, 300, 10), 20 timed steps:
+               every solve one circulant_pcg launch (velocity B = 3,
+               K = 65 on route B with the band streamed, Poisson K = 15 on
+               route A); one step's solves held against their plain
+               versions and timed with their bounds, and the applies at
+               these shapes beside torch.sparse.mm.
+24. duct3d  -- plane Poiseuille flow in tests/test_3d_solver.py's duct at
+               (18, 6, 6) cells, f64, 200 steps of 0.05: the exact profile
+               to 1e-6, step_kind "fast".
+25. shell3d -- spherical Couette flow on spherical_shell(3, (0.5, 1), 16)
+               (48,672 cells, 216,046 DoFs), f32, Re = 1, dt = 0.025, 60
+               steps: one fastop_fallback record (no band format holds the
+               shell), the cell-loop step ("generic"), and u_phi on the
+               equatorial plane within 1e-3 Omega r_i of the Stokes
+               solution.
+26. bfs     -- demo/backward_facing_step.py's StationaryProblem (Re 50),
+               f64, host LU, on the built-in mesh and on
+               read_geo_msh("meshes/backward_facing_step.geo"): the first
+               solve converges (no Reynolds continuation), inflow equals
+               outflow to 1e-8, and the mesh's XDMF write and read-back
+               through the inline-XML branch is array-equal; prints the
+               recirculation length.
+27. blasius -- demo/blasius_flow.py's StationaryProblem (Re 200), f64,
+               host LU, the same convergence requirement.
+28. mesh3d_parity -- f64, the card against the CPU: 10 steps of the
+               cavity at 6^3 (banded) and of the cell loop on
+               spherical_shell(3, (0.5, 1), 6) forced by
+               NS_FASTOP_MAX_BYTES, each <= 1e-12; the backward-facing
+               step's stationary solution <= 1e-10.
+29. the total seconds, the ``kernels`` line, then the card's nvidia-smi
    line, then the last line ``{"ok": true, "device": {...}}``.
 
 ``--profile DIR`` also writes a torch.profiler table of 10 steps of each
 path (banded, structured 2D, structured 3D, solver cavity, problem cavity,
-DFG, monolithic DFG), of one Newton iteration of newton_dfg and of one
+DFG, monolithic DFG, 3D cavity, shell), of one Newton iteration of newton_dfg and of one
 10-iteration PCD-FGMRES restart cycle of newton_cavity (by device time,
 host time and input shape) to DIR.
 ``--phases LIST`` runs only the named groups (``kernels``,
-``structured``, ``solver``, ``problems``, ``newton``; the device and build
-phases always run) and then prints no ``kernels`` line.  ``--baseline DIR``
+``structured``, ``solver``, ``problems``, ``newton``, ``mesh3d``; the
+device and build phases always run) and then prints no ``kernels`` line.  ``--baseline DIR``
 also times the kernels of another checkout of this repository (its ``navierstokes_tpu_torch``, built from its own
 source) on the same inputs in the same process, in the order baseline,
 this, this, baseline.
@@ -167,6 +209,7 @@ this, this, baseline.
 
 import argparse
 import contextlib
+import functools
 import io
 import json
 import math
@@ -188,15 +231,20 @@ from navierstokes_tpu_torch.assembly.fastop import (FastTaylorHood,
                                                     planar_ops_from_numpy,
                                                     planar_ops_to_numpy)
 from navierstokes_tpu_torch.fem.bcs import PressureBCType, VelocityBCType
-from navierstokes_tpu_torch.fem.spaces import axis_periodic
+from navierstokes_tpu_torch.fem.spaces import TaylorHoodSpace, axis_periodic
 from navierstokes_tpu_torch.io import load_checkpoint, save_checkpoint
-from navierstokes_tpu_torch.mesh import channel_with_cylinder, hyper_cube
+from navierstokes_tpu_torch.mesh import (backward_facing_step, blasius_plate,
+                                         channel_with_cylinder, hyper_cube,
+                                         read_geo_msh, xdmf_io)
 from navierstokes_tpu_torch.problems import (EquationCoefficientHandler,
                                              InstationaryProblem,
                                              StationaryProblem)
-from navierstokes_tpu_torch.setups import (channel_setup,
+from navierstokes_tpu_torch.setups import (channel_setup, duct_profile,
+                                           duct_setup,
                                            lid_driven_cavity_setup,
                                            parabolic_inlet,
+                                           spherical_couette_setup,
+                                           spherical_couette_stokes,
                                            taylor_green_setup)
 from navierstokes_tpu_torch.solvers import (ImplicitBDFSolver,
                                             ProjectionSolver,
@@ -235,6 +283,9 @@ SOLVER = {"n": 128, "re": 1000.0, "steps": 200, "cg_rtol": 1e-6,
           "kernel_steps": 50, "kernel_cg_iters": (18, 300, 10),
           "periodic_steps": 100, "n_parity": 32, "channel": (20, 4)}
 DEVICE = "cuda:0"
+# the 3D cavity's size (24^3 cells: 117,649 velocity and 15,625 pressure
+# nodes), whose band shapes the kernels phase also holds
+MESH3D_KERNEL_N = 24
 # NVIDIA H100 SXM data sheet: HBM3 bandwidth, and the peak rates outside
 # the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
@@ -402,6 +453,84 @@ def streamed_case(dtype, dev, n=1 << 20, W=1024, batch=2, iters=10):
             t(np.zeros((batch, n))), t(1.0 / band[d]), 1.0, iters, False)
 
 
+@functools.lru_cache(maxsize=None)
+def box_offsets(n, degree):
+    """The offsets of the P2 (``degree`` 2) or P1 band of a 3D box of n^3
+    cells under the lexicographic order, as FastTaylorHood builds them
+    (65 and 15): the stencil read off the engine of a 3^3 box (node grids
+    7^3 and 4^3, every stencil component within +-2) and laid on the
+    n^3 box's grid of (degree n + 1)^3 nodes."""
+    small = box_engine3()
+    op = small.M if degree == 2 else small.L
+    g_small, g = 2 * 3 + 1 if degree == 2 else 3 + 1, degree * n + 1
+    N_small, N = g_small ** 3, g ** 3
+    out = []
+    for o in op.offsets:
+        s = o if o <= N_small // 2 else o - N_small
+        comps = []
+        for _ in range(2):
+            c = (s + g_small // 2) % g_small - g_small // 2
+            comps.append(c)
+            s = (s - c) // g_small
+        dx, dy, dz = comps[0], comps[1], s
+        out.append((dz * g * g + dy * g + dx) % N)
+    return tuple(sorted(out))
+
+
+@functools.lru_cache(maxsize=None)
+def box_engine3():
+    """FastTaylorHood of the 3^3 box on the CPU (f64)."""
+    mesh, _ = hyper_cube(3, 3)
+    return FastTaylorHood(TaylorHoodSpace(mesh), dtype=torch.float64,
+                          device="cpu")
+
+
+def box_case(kind, dtype, dev, n=MESH3D_KERNEL_N):
+    """Kernel cases at the 3D cavity's shapes (n^3 cells): ``apply_M``
+    and ``apply_L`` ((band, offsets, x)), the velocity solve on route B
+    with the band streamed (``velocity`` / ``velocity_masked``: B = 3,
+    K = 65, 10 iterations) and the mean-free Poisson solve on route A
+    (``poisson``: B = 1, K = 15, 60 iterations).  A random band with one
+    value on each offset pair (so symmetric) and a dominant diagonal; the
+    Poisson band a graph Laplacian (row sums 0)."""
+    rng = np.random.default_rng(13)
+    degree = 1 if kind in ("apply_L", "poisson") else 2
+    offs = list(box_offsets(n, degree))
+    N = (degree * n + 1) ** 3
+    batch = 1 if degree == 1 else 3
+    band = np.empty((len(offs), N))
+    d = offs.index(0)
+    if kind == "poisson":
+        band[:] = -1.0
+        band[d] = len(offs) - 1.0
+    else:
+        pair = {}
+        for k, o in enumerate(offs):
+            key = min(o, (N - o) % N)
+            band[k] = pair.setdefault(key, -0.5 - rng.random())
+        band[d] = np.abs(np.delete(band, d, axis=0)).sum(0) + 1.0 \
+            + rng.random(N)
+
+    def t(a):
+        return torch.tensor(a, dtype=dtype, device=dev)
+
+    if kind.startswith("apply"):
+        return t(band), offs, t(rng.standard_normal((batch, N)))
+    shape = (batch, N) if batch > 1 else (N,)
+    b = rng.standard_normal(shape)
+    x0 = np.zeros(shape)
+    maskv = 1.0
+    if kind == "velocity_masked":
+        fixed = np.zeros(shape, bool)
+        fixed[:, :N // 20] = True
+        g = np.where(fixed, rng.standard_normal(shape), 0.0)
+        b, x0 = np.where(fixed, g, b), g
+        maskv = t(np.where(fixed, 0.0, 1.0))
+    iters = 60 if kind == "poisson" else 10
+    return (t(band), offs, t(b), t(x0), t(1.0 / band[d]), maskv, iters,
+            kind == "poisson")
+
+
 def record_subsolves(run):
     """Arguments of the three circulant_pcg calls of one step, which
     ``run()`` takes."""
@@ -513,6 +642,12 @@ def phase_apply(st):
         cases.append((f"{name}_{N_POINTS}", op.offsets,
                       op.band.cpu().numpy(),
                       rng.standard_normal((batch, op.n))))
+    # the 3D cavity's shapes: the velocity pair of planes has three here
+    # (the <T, 4> instance with three live planes), K = 65 and 15
+    for kind in ("apply_M", "apply_L"):
+        band, offs, x = box_case(kind, torch.float64, "cpu")
+        cases.append((f"box3d_{kind}_{MESH3D_KERNEL_N}", offs, band.numpy(),
+                      x.numpy()))
     bounds = {torch.float32: 1e-6, torch.float64: 1e-13}
     report, err_main = [], 0.0
     for name, offs, band_np, x_np in cases:
@@ -564,6 +699,12 @@ def phase_pcg(st):
              for dtype in (torch.float32, torch.float64)]
     cases.append(("streamed_n1048576", streamed_case(torch.float32, st.dev),
                   torch.float32))
+    # the 3D cavity's solves: velocity B = 3, K = 65 on route B with the
+    # band streamed, masked and not; the mean-free Poisson K = 15 on route A
+    cases += [(f"box3d_{k}_{MESH3D_KERNEL_N}", box_case(k, dtype, st.dev),
+               dtype)
+              for k in ("velocity", "velocity_masked", "poisson")
+              for dtype in (torch.float32, torch.float64)]
     subs = {}
     for dtype, ops in ((torch.float32, st.fast32.ops),
                        (torch.float64, st.ops64)):
@@ -600,7 +741,10 @@ def phase_pcg(st):
         seen |= {(route, str(dtype)), (route, "masked" if masked else
                                        "meanfree" if meanfree else "plain"),
                  (route, f"B{planes}", "masked" if masked else "unmasked",
-                  str(dtype))}
+                  str(dtype)),
+                 (route, f"B{planes}", f"K{case[0].shape[0]}",
+                  "masked" if masked else "meanfree" if meanfree
+                  else "unmasked", str(dtype))}
         report.append({"case": name, "dtype": str(dtype), "route": route,
                        "planes": planes, "rel_err": err, "res": rn,
                        "res_plain": rn_ref})
@@ -612,6 +756,11 @@ def phase_pcg(st):
             ("cluster", "meanfree"), ("grid", "masked"), ("grid", "meanfree")}
     need |= {("cluster", "B2", m, str(dt)) for m in ("masked", "unmasked")
              for dt in (torch.float32, torch.float64)}
+    # the 3D cavity's shapes (box_case)
+    for dt in (torch.float32, torch.float64):
+        need |= {("grid-streamed", "B3", "K65", m, str(dt))
+                 for m in ("masked", "unmasked")}
+        need.add(("cluster", "B1", "K15", "meanfree", str(dt)))
     if need - seen:
         raise AssertionError(f"routes not exercised: {sorted(need - seen)}")
     for dtype in (torch.float32, torch.float64):
@@ -1287,6 +1436,52 @@ def phase_solver_cavity(dev, smi, profile_dir):
     return ms, launches
 
 
+def pcg_solve_row(case, dtype):
+    """A whole-solve case held against its plain version and timed."""
+    x, r = cuda_band.circulant_pcg(*case)
+    x_ref, r_ref = cuda_band.circulant_pcg_plain(*case)
+    torch.cuda.synchronize()
+    err = rel_err(x, x_ref)
+    rn = float(torch.linalg.vector_norm(r.double()))
+    rn_ref = float(torch.linalg.vector_norm(r_ref.double()))
+    band, _, b = case[:3]
+    b_ms, b_by = bound(*pcg_work(case), dtype)
+    row = {"route": pcg_route(case), "iters": case[6], "K": band.shape[0],
+           "n": band.shape[1], "planes": b.numel() // band.shape[1],
+           "masked": torch.is_tensor(case[5]), "meanfree": bool(case[7]),
+           "rel_err": err, "res": rn, "res_plain": rn_ref,
+           "ms": time_ms(lambda: cuda_band.circulant_pcg(*case)),
+           "device_ms": device_ms(lambda: cuda_band.circulant_pcg(*case)),
+           "plain_ms": time_ms(lambda: cuda_band.circulant_pcg_plain(*case)),
+           "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+    ok = err < 1e-5 and abs(rn - rn_ref) <= 1e-4 * rn_ref + 1e-6
+    return row, ok, abs_err(x, x_ref)
+
+
+def apply_row(op, batch, dev, seed):
+    """circulant_apply of ``op`` on ``batch`` planes against its plain
+    version and torch.sparse.mm, with times and bound (f32)."""
+    x = torch.tensor(np.random.default_rng(seed).standard_normal(
+        (batch, op.n)), dtype=torch.float32, device=dev)
+    call = lambda: cuda_band.circulant_apply(op.band, op.offsets, x)
+    plain = lambda: cuda_band.circulant_apply_plain(op.band, op.offsets, x)
+    err = rel_err(call(), plain())
+    if not err <= 1e-6:
+        raise AssertionError(f"circulant_apply K = {len(op.offsets)}, "
+                             f"n = {op.n}: rel err {err} > 1e-6")
+    A, xT = csr_of(op), x.t().contiguous()
+    lib_err = rel_err(torch.sparse.mm(A, xT).t(), call())
+    if not lib_err <= 1e-6:
+        raise AssertionError(f"torch.sparse.mm disagrees: {lib_err}")
+    b_ms, b_by = bound(*apply_work(len(op.offsets), op.n, batch, 4),
+                       torch.float32)
+    return {"K": len(op.offsets), "n": op.n, "planes": batch,
+            "rel_err": err, "max_abs_err": abs_err(call(), plain()),
+            "ms": time_ms(call), "device_ms": device_ms(call),
+            "plain_ms": time_ms(plain), "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": time_ms(lambda: torch.sparse.mm(A, xT))}
+
+
 def phase_solver_cavity_kernels(dev, smi):
     """The cavity with every solve in the whole-solve PCG kernel; returns
     (launches, times of the three solves at these shapes, max abs error)."""
@@ -1307,60 +1502,19 @@ def phase_solver_cavity_kernels(dev, smi):
     subs = record_subsolves(lambda: advance(solver, ts))
     report, err_max = {}, 0.0
     for name, case in subs.items():
-        x, r = cuda_band.circulant_pcg(*case)
-        x_ref, r_ref = cuda_band.circulant_pcg_plain(*case)
-        torch.cuda.synchronize()
-        err = rel_err(x, x_ref)
-        rn = float(torch.linalg.vector_norm(r.double()))
-        rn_ref = float(torch.linalg.vector_norm(r_ref.double()))
-        band, _, b = case[:3]
-        b_ms, b_by = bound(*pcg_work(case), torch.float32)
-        report[name] = {
-            "route": pcg_route(case), "iters": case[6],
-            "K": band.shape[0], "n": band.shape[1],
-            "planes": b.numel() // band.shape[1],
-            "masked": torch.is_tensor(case[5]), "meanfree": bool(case[7]),
-            "rel_err": err, "res": rn, "res_plain": rn_ref,
-            "ms": time_ms(lambda c=case: cuda_band.circulant_pcg(*c)),
-            "device_ms": device_ms(lambda c=case: cuda_band.circulant_pcg(*c)),
-            "plain_ms": time_ms(lambda c=case: cuda_band.circulant_pcg_plain(
-                *c)),
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
-        if not (err < 1e-5 and abs(rn - rn_ref) <= 1e-4 * rn_ref + 1e-6):
+        report[name], ok, err = pcg_solve_row(case, torch.float32)
+        if not ok:
             emit({"phase": "solver_cavity_kernels", "failed": name,
                   "solves": report})
             raise AssertionError(
                 f"solver_cavity_kernels {name} ({report[name]['route']}): "
-                f"rel err {err}, |r| {rn} vs {rn_ref}")
-        err_max = max(err_max, abs_err(x, x_ref))
+                f"rel err {report[name]['rel_err']}, |r| "
+                f"{report[name]['res']} vs {report[name]['res_plain']}")
+        err_max = max(err_max, err)
     # the band matvec at the cavity's shapes (M on both velocity planes, L)
     fast = solver._fast
-    rng = np.random.default_rng(9)
-    applies = {}
-    for name, op, batch in (("M_b2", fast.M, 2), ("L_b1", fast.L, 1)):
-        x = torch.tensor(rng.standard_normal((batch, op.n)),
-                         dtype=torch.float32, device=dev)
-        call = lambda o=op, v=x: cuda_band.circulant_apply(o.band, o.offsets,
-                                                           v)
-        plain = lambda o=op, v=x: cuda_band.circulant_apply_plain(
-            o.band, o.offsets, v)
-        err = rel_err(call(), plain())
-        if not err <= 1e-6:
-            raise AssertionError(f"circulant_apply {name} at the cavity's "
-                                 f"shape: rel err {err} > 1e-6")
-        A, xT = csr_of(op), x.t().contiguous()
-        lib_err = rel_err(torch.sparse.mm(A, xT).t(), call())
-        if not lib_err <= 1e-6:
-            raise AssertionError(f"torch.sparse.mm disagrees at {name}: "
-                                 f"{lib_err}")
-        b_ms, b_by = bound(*apply_work(len(op.offsets), op.n, batch, 4),
-                           torch.float32)
-        applies[name] = {"K": len(op.offsets), "n": op.n, "rel_err": err,
-                         "ms": time_ms(call), "device_ms": device_ms(call),
-                         "plain_ms": time_ms(plain), "bound_ms": b_ms,
-                         "bound_by": b_by,
-                         "library_ms": time_ms(
-                             lambda a=A, v=xT: torch.sparse.mm(a, v))}
+    applies = {"M_b2": apply_row(fast.M, 2, dev, 9),
+               "L_b1": apply_row(fast.L, 1, dev, 10)}
     emit({"phase": "solver_cavity_kernels",
           "config": f"lid-driven cavity {n}^2 f32, cg_rtol None, no "
                     f"preconditioner, cg_iters {SOLVER['kernel_cg_iters']}",
@@ -2622,7 +2776,609 @@ def phase_newton_parity(dev):
     return launches
 
 
-GROUPS = ("kernels", "structured", "solver", "problems", "newton")
+# ---------------------------------------------------------------------------
+# group mesh3d: the 3D banded engine, the cell-loop step, the external mesh
+# workflow and the stationary demos of the rest of the mesh layer
+# ---------------------------------------------------------------------------
+
+# the sizes of the mesh3d phases.  The duct at (18, 6, 6) cells approaches
+# its steady state by a factor of about 0.978 per step of 0.05 (the same
+# digits on the card and on the CPU): 5.7e-6 from the exact profile after
+# 100 steps, 6.6e-7 after 200, so it runs 200.  ``shell_guard`` bounds the
+# deviation of
+# u_phi on the equatorial plane from the Stokes solution, relative to
+# Omega r_i: the port's own CPU run at the same size, steps and step size
+# reads 4.88e-4 in f64 from t = 1.25 on (the Re = 1 convection and the
+# discretization), so twice that, rounded up
+MESH3D = {"cavity_n": MESH3D_KERNEL_N, "cavity_re": 100.0, "cavity_steps": 20,
+          "kernel_steps": 20, "kernel_cg_iters": (18, 300, 10),
+          "duct": (18, 6, 6), "duct_steps": 200, "shell_n": 16,
+          "shell_dt": 0.025, "shell_steps": 60, "shell_guard": 1.0e-3,
+          "bfs_res": 1.0, "blasius_res": 1.0, "parity_cavity_n": 6,
+          "parity_shell_n": 6, "parity_steps": 10}
+SHELL_RE = 1.0
+SHELL_RADII = (0.5, 1.0)
+
+
+def make_cavity3d(n, device, dtype, **kw):
+    """The 3D lid-driven cavity (tests/test_3d_solver.py's boundary
+    conditions) at n^3 cells and Re MESH3D["cavity_re"] through
+    ProjectionSolver; dt = 0.25 / (2 n), from rest."""
+    mesh, markers, bcs = lid_driven_cavity_setup(n, dim=3)
+    ts = BDFTimeStepping(0.0, 1.0e6, desired_start_time_step=0.25 / (2 * n))
+    solver = ProjectionSolver(mesh, markers, "standard", ts, device=device,
+                              dtype=dtype, **kw)
+    solver.set_boundary_conditions(bcs)
+    solver.set_equation_coefficients(
+        {"convective_term": 1.0, "viscous_term": 1.0 / MESH3D["cavity_re"],
+         "pressure_term": 1.0})
+    solver.set_initial_conditions({"velocity": (0.0, 0.0, 0.0)})
+    return solver, ts
+
+
+def cavity3d_guards(solver, name):
+    """Finite state; lid nodes (inside the top face) at (1, 0, 0) and the
+    other wall nodes at 0, each to 1e-6."""
+    x = solver.solution
+    if not bool(torch.isfinite(x).all()):
+        raise AssertionError(f"{name}: non-finite state")
+    u, _ = solver.space.split(x)
+    div_l2 = solver.operator.divergence_l2(u)
+    u = u.double().cpu().numpy()
+    c = solver.space.u_coords
+    on = (np.abs(c) < 1e-12) | (np.abs(c - 1.0) < 1e-12)
+    lid = on[:, 1] & (c[:, 1] > 0.5)
+    inner_lid = lid & ~on[:, 0] & ~on[:, 2]
+    walls = on.any(axis=1) & ~lid
+    lid_err = float(np.abs(u[inner_lid] - [1.0, 0.0, 0.0]).max())
+    wall_err = float(np.abs(u[walls]).max())
+    if not (lid_err <= 1e-6 and wall_err <= 1e-6):
+        raise AssertionError(f"{name}: lid error {lid_err}, wall error "
+                             f"{wall_err} > 1e-6")
+    return {"lid_err": lid_err, "wall_err": wall_err, "div_l2": div_l2,
+            "u_max": float(np.abs(u).max())}
+
+
+def phase_cavity3d(dev, smi, profile_dir):
+    """The 3D lid-driven cavity at 24^3 through ProjectionSolver on the
+    banded engine, f32, the solver's default tolerances; returns (solver,
+    ts, launches)."""
+    n, n_steps = MESH3D["cavity_n"], MESH3D["cavity_steps"]
+    t0 = time.perf_counter()
+    solver, ts = make_cavity3d(n, dev, torch.float32)
+    t_ic = time.perf_counter() - t0
+    # the first step builds the space, the engine and the AMG hierarchy
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    advance(solver, ts)
+    torch.cuda.synchronize()
+    t_first = time.perf_counter() - t0
+    if solver._step_kind != "fast":
+        raise AssertionError(f"cavity3d: step_kind {solver._step_kind!r}, "
+                             "expected 'fast'")
+    fast = solver._fast
+    # the kernels phase's synthetic 3D cases have this engine's shapes
+    if tuple(fast.M.offsets) != box_offsets(n, 2) or \
+            tuple(fast.L.offsets) != box_offsets(n, 1):
+        raise AssertionError("cavity3d: band offsets differ from the "
+                             "kernels phase's 3D cases")
+    elapsed, launches = timed_steps(solver, ts, n_steps)
+    peak = torch.cuda.max_memory_allocated()
+    ms = 1e3 * elapsed / n_steps
+    res = residual_records(solver)
+    if res.shape != (1 + N_WARMUP + n_steps, 3) or \
+            not np.isfinite(res).all():
+        raise AssertionError("cavity3d: residual records missing or "
+                             "non-finite")
+    guards = cavity3d_guards(solver, "cavity3d")
+    busy = solver_busy(solver, ts, ms)
+    space = solver.space
+    emit({"phase": "cavity3d",
+          "config": f"lid-driven cavity {n}^3 f32 (P2: {2 * n + 1}^3 "
+                    f"velocity nodes), Re {MESH3D['cavity_re']:g}, dt "
+                    f"{0.25 / (2 * n):g}, the solver's defaults (amg, "
+                    "cg_iters (40, 40, 20), cg_rtol 1e-8: below f32 "
+                    "roundoff, so the solves run to their caps)",
+          "step_kind": solver._step_kind, "n_dofs": space.n_dofs,
+          "operators": engine_formats(fast), "steps_timed": n_steps,
+          "seconds": elapsed, "ms_per_step": ms,
+          "dof_steps_per_s": n_steps * space.n_dofs / elapsed,
+          "launches_per_step": {k: v / (N_WARMUP + n_steps)
+                                for k, v in launches.items()},
+          "busy": busy, "peak_device_bytes": peak,
+          "residuals_last": res[-1].tolist(),
+          "residuals_max": res.max(axis=0).tolist(), "guards": guards,
+          "setup_seconds": dict(setup_seconds(solver),
+                                through_initial_conditions=t_ic,
+                                first_step=t_first),
+          "nvidia_smi": smi})
+    if launches["circulant_apply"] <= 0:
+        raise AssertionError("cavity3d launched no circulant_apply")
+    if profile_dir:
+        write_profile(lambda: advance(solver, ts), smi, profile_dir,
+                      "profile_cavity3d.txt",
+                      f"lid-driven cavity {n}^3 f32, solver API")
+    return solver, ts, launches
+
+
+def phase_cavity3d_kernels(solver, ts, smi):
+    """cavity3d's engine with fixed iterations, no preconditioner and no
+    tolerance: the step ``ProjectionSolver(..., cg_rtol=None,
+    poisson_precond=None, cg_iters=...)`` builds, set on the same solver
+    so the 24^3 host setup runs once.  Every solve is one circulant_pcg
+    launch.  Returns (launches, solve rows, apply rows, max abs error)."""
+    n_steps = MESH3D["kernel_steps"]
+    old = solver._fast_step
+    v_free, v_vals, p_free = old.masks
+    solver._fast_step = build_planar_projection_step(
+        solver._fast, visc=solver._visc, dt=float(solver._next_step_size),
+        cg_iters=MESH3D["kernel_cg_iters"],
+        vel_bc=((v_free == 0).cpu().numpy(), v_vals.cpu().numpy()),
+        pres_bc_mask=None if p_free is None else
+        (p_free == 0).cpu().numpy(),
+        conv_coeff=solver._conv_coeff, cg_rtol=None, with_residuals=True)
+    elapsed, launches = timed_steps(solver, ts, n_steps)
+    steps = N_WARMUP + n_steps
+    if launches["circulant_pcg"] != 3 * steps:
+        raise AssertionError(
+            f"cavity3d_kernels: {launches['circulant_pcg']} circulant_pcg "
+            f"launches in {steps} steps, expected 3 per step")
+    guards = cavity3d_guards(solver, "cavity3d_kernels")
+    subs = record_subsolves(lambda: advance(solver, ts))
+    routes = {k: pcg_route(v) for k, v in subs.items()}
+    if routes != {"helmholtz": "grid-streamed", "poisson": "cluster",
+                  "mass": "grid-streamed"}:
+        raise AssertionError(f"cavity3d_kernels: sub-solve routes {routes}")
+    solves, err_max, failed = {}, 0.0, []
+    for name, case in subs.items():
+        solves[name], ok, err = pcg_solve_row(case, torch.float32)
+        err_max = max(err_max, err)
+        if not ok:
+            failed.append(name)
+    fast = solver._fast
+    applies = {"M_b3": apply_row(fast.M, 3, fast.device, 9),
+               "L_b1": apply_row(fast.L, 1, fast.device, 10)}
+    emit({"phase": "cavity3d_kernels",
+          "config": f"cavity3d's engine, cg_rtol None, no preconditioner, "
+                    f"cg_iters {MESH3D['kernel_cg_iters']}",
+          "step_kind": solver._step_kind, "steps_timed": n_steps,
+          "ms_per_step": 1e3 * elapsed / n_steps,
+          "dof_steps_per_s": n_steps * solver.space.n_dofs / elapsed,
+          "launches_per_step": {k: v / steps for k, v in launches.items()},
+          "guards": guards, "solves": solves, "applies": applies,
+          "unit": "ms", "nvidia_smi": smi})
+    if failed:
+        raise AssertionError(f"cavity3d_kernels: {failed} disagree with "
+                             "their plain versions")
+    return launches, solves, applies, err_max
+
+
+def make_duct(device, dtype, n_points):
+    """tests/test_3d_solver.py's duct through ProjectionSolver: cg_iters
+    (60, 600, 30), cg_rtol 1e-12, dt 0.05, visc 0.1, from rest."""
+    mesh, markers, bcs = duct_setup(n_points)
+    ts = BDFTimeStepping(0.0, 1.0e6, desired_start_time_step=0.05)
+    solver = ProjectionSolver(mesh, markers, "standard", ts, device=device,
+                              dtype=dtype, cg_iters=(60, 600, 30),
+                              cg_rtol=1e-12)
+    solver.set_boundary_conditions(bcs)
+    solver.set_equation_coefficients({"convective_term": 1.0,
+                                      "viscous_term": 0.1,
+                                      "pressure_term": 1.0})
+    solver.set_initial_conditions({"velocity": (0.0, 0.0, 0.0)})
+    return solver, ts
+
+
+def phase_duct3d(dev, smi):
+    """Plane Poiseuille flow in the 3D duct (f64): after the steps the
+    state is the exact profile to 1e-6."""
+    n_steps = MESH3D["duct_steps"]
+    t0 = time.perf_counter()
+    solver, ts = make_duct(dev, torch.float64, MESH3D["duct"])
+    cuda_band.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    advance(solver, ts)
+    torch.cuda.synchronize()
+    t_setup = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    advance(solver, ts, n_steps - 1)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t1
+    peak = torch.cuda.max_memory_allocated()
+    launches = dict(cuda_band.LAUNCHES)
+    space = solver.space
+    u, _ = space.split(solver.solution)
+    err = float(np.abs(u.cpu().numpy()
+                       - duct_profile(space.u_coords)).max())
+    ms = 1e3 * seconds / (n_steps - 1)
+    emit({"phase": "duct3d",
+          "config": f"duct {MESH3D['duct']} cells f64, plane Poiseuille, "
+                    "no-normal-flux side walls, cg_rtol 1e-12, dt 0.05",
+          "step_kind": solver._step_kind, "n_dofs": space.n_dofs,
+          "operators": engine_formats(solver._fast), "steps": n_steps,
+          "ms_per_step": ms,
+          "dof_steps_per_s": (n_steps - 1) * space.n_dofs / seconds,
+          "max_err_vs_exact": err,
+          "launches_per_step": {k: v / n_steps for k, v in launches.items()},
+          "busy": solver_busy(solver, ts, ms), "peak_device_bytes": peak,
+          "setup_seconds": dict(setup_seconds(solver),
+                                through_first_step=t_setup),
+          "nvidia_smi": smi})
+    if solver._step_kind != "fast" or not err < 1e-6:
+        raise AssertionError(f"duct3d: step_kind {solver._step_kind!r}, "
+                             f"error {err} (needs 'fast' and < 1e-6)")
+    if launches["circulant_apply"] <= 0:
+        raise AssertionError("duct3d launched no circulant_apply")
+    return launches
+
+
+def make_shell(n, device, dtype, dt, **kw):
+    """Spherical Couette flow on spherical_shell(3, SHELL_RADII, n): the
+    inner sphere turning at Omega = 1 about z, Re = Omega r_i^2 / nu."""
+    mesh, markers, bcs = spherical_couette_setup(n, SHELL_RADII)
+    ts = BDFTimeStepping(0.0, 1.0e6, desired_start_time_step=dt)
+    solver = ProjectionSolver(mesh, markers, "standard", ts, device=device,
+                              dtype=dtype, **kw)
+    solver.set_boundary_conditions(bcs)
+    solver.set_equation_coefficients(
+        {"convective_term": 1.0,
+         "viscous_term": SHELL_RADII[0] ** 2 / SHELL_RE,
+         "pressure_term": 1.0})
+    solver.set_initial_conditions({"velocity": (0.0, 0.0, 0.0)})
+    return solver, ts
+
+
+def shell_deviation(solver):
+    """Largest |u_phi - u_phi(Stokes)| over the velocity nodes on the
+    equatorial plane z = 0, relative to Omega r_i, and the node count."""
+    u, _ = solver.space.split(solver.solution)
+    u = u.double().cpu().numpy()
+    x = solver.space.u_coords
+    eq = np.abs(x[:, 2]) < 1e-9
+    stokes = spherical_couette_stokes(x[eq], SHELL_RADII)
+    rho = np.hypot(x[eq, 0], x[eq, 1])
+
+    def phi(v):
+        return (-x[eq, 1] * v[:, 0] + x[eq, 0] * v[:, 1]) / rho
+
+    dev = np.abs(phi(u[eq]) - phi(stokes)).max() / SHELL_RADII[0]
+    return float(dev), int(eq.sum())
+
+
+def phase_shell3d(dev, smi, profile_dir):
+    """Spherical Couette flow on a shell that no banded format holds in
+    f32: one fastop_fallback record, the cell-loop step, and near the
+    steady state u_phi on the equatorial plane against the Stokes
+    solution."""
+    n, n_steps = MESH3D["shell_n"], MESH3D["shell_steps"]
+    t0 = time.perf_counter()
+    solver, ts = make_shell(n, dev, torch.float32, MESH3D["shell_dt"])
+    cuda_band.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t1 = time.perf_counter()
+    advance(solver, ts)
+    torch.cuda.synchronize()
+    t_first = time.perf_counter() - t1
+    fallbacks = [r for r in solver.monitor.records
+                 if r["kind"] == "fastop_fallback"]
+    if solver._step_kind != "generic" or len(fallbacks) != 1:
+        raise AssertionError(
+            f"shell3d: step_kind {solver._step_kind!r} after "
+            f"{len(fallbacks)} fastop_fallback records (expected 'generic' "
+            "after one)")
+    t2 = time.perf_counter()
+    advance(solver, ts, n_steps - 1)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t2
+    peak = torch.cuda.max_memory_allocated()
+    launches = dict(cuda_band.LAUNCHES)
+    ms = 1e3 * elapsed / (n_steps - 1)
+    busy = solver_busy(solver, ts, ms)
+    deviation, n_eq = shell_deviation(solver)
+    res = residual_records(solver)
+    space = solver.space
+    emit({"phase": "shell3d",
+          "config": f"spherical Couette flow, spherical_shell(3, "
+                    f"{SHELL_RADII}, {n}) f32, Re {SHELL_RE:g}, dt "
+                    f"{MESH3D['shell_dt']}, the solver's defaults",
+          "step_kind": solver._step_kind,
+          "fastop_fallback": fallbacks[0]["reason"],
+          "n_cells": space.mesh.n_cells, "n_dofs": space.n_dofs,
+          "steps": n_steps, "t_end": ts.current_time, "ms_per_step": ms,
+          "dof_steps_per_s": (n_steps - 1) * space.n_dofs / elapsed,
+          "busy": busy, "peak_device_bytes": peak,
+          "residuals_last": res[-1].tolist(),
+          "u_phi_deviation_vs_stokes": deviation,
+          "equatorial_nodes": n_eq, "guard": MESH3D["shell_guard"],
+          "launches": launches,
+          "setup_seconds": dict(setup_seconds(solver),
+                                through_initial_conditions=t1 - t0,
+                                first_step=t_first),
+          "nvidia_smi": smi})
+    if not np.isfinite(res).all() or \
+            not deviation <= MESH3D["shell_guard"]:
+        raise AssertionError(f"shell3d: u_phi deviation {deviation} > "
+                             f"{MESH3D['shell_guard']} or non-finite "
+                             "residuals")
+    if profile_dir:
+        write_profile(lambda: advance(solver, ts), smi, profile_dir,
+                      "profile_shell3d.txt",
+                      f"spherical Couette flow, shell n = {n}, cell loop")
+    return launches
+
+
+class BackwardFacingStep(StationaryProblem):
+    """demo/backward_facing_step.py's problem (Re 50, the parabolic inlet
+    on y in [0.5, 1], no slip on the walls, do-nothing outflow) on the
+    built-in mesh or on a mesh passed in."""
+
+    def __init__(self, main_dir, mesh=None, **kw):
+        super().__init__(main_dir, **kw)
+        self._problem_name = "BackwardFacingStep"
+        self._given_mesh = mesh
+
+    def setup_mesh(self):
+        self._mesh, self._boundary_markers, self._boundary_marker_map = \
+            self._given_mesh or backward_facing_step(MESH3D["bfs_res"])
+
+    def set_boundary_conditions(self):
+        h, y0 = 0.5, 0.5
+
+        def inlet_velocity(x):
+            s = (x[:, 1] - y0) / h
+            return np.stack([6.0 * s * (1.0 - s), np.zeros(len(x))], axis=1)
+
+        bm = self._boundary_marker_map
+        self._bcs = ((VelocityBCType.function, bm["inlet"], inlet_velocity),
+                     (VelocityBCType.no_slip, bm["walls"], None))
+
+    def set_equation_coefficients(self):
+        self._coefficient_handler = EquationCoefficientHandler(Re=50.0)
+
+
+class BlasiusFlow(StationaryProblem):
+    """demo/blasius_flow.py's problem (Re 200, unit inflow, no normal flux
+    on top and bottom, the plate an internal no-slip constraint)."""
+
+    def __init__(self, main_dir, **kw):
+        super().__init__(main_dir, **kw)
+        self._problem_name = "BlasiusFlow"
+
+    def setup_mesh(self):
+        self._mesh, self._boundary_markers, self._boundary_marker_map = \
+            blasius_plate(MESH3D["blasius_res"])
+
+    def set_boundary_conditions(self):
+        bm = self._boundary_marker_map
+        self._bcs = ((VelocityBCType.function, bm["inlet"],
+                      lambda x: np.stack([np.ones(len(x)),
+                                          np.zeros(len(x))], axis=1)),
+                     (VelocityBCType.no_normal_flux, bm["bottom"], None),
+                     (VelocityBCType.no_normal_flux, bm["top"], None))
+
+    def set_equation_coefficients(self):
+        self._coefficient_handler = EquationCoefficientHandler(Re=200.0)
+
+    def set_internal_constraints(self):
+        self._internal_constraints = (
+            (VelocityBCType.no_slip, self._boundary_marker_map["plate"],
+             None),)
+
+
+def solve_stationary(problem, name):
+    """Run ``problem`` quietly; raise unless its first solve converged (one
+    nonlinear_solve record: no Reynolds continuation).  Returns (solver,
+    record, seconds)."""
+    problem._write_output = False
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        problem.solve_problem()
+    seconds = time.perf_counter() - t0
+    solver = problem._get_solver()
+    solves = [r for r in solver.monitor.records
+              if r["kind"] == "nonlinear_solve"]
+    if len(solves) != 1:
+        raise AssertionError(f"{name}: {len(solves)} nonlinear solves on "
+                             "record: the first solve did not converge and "
+                             "the Reynolds continuation ran")
+    return solver, dict(solves[0]), seconds
+
+
+def boundary_flux(solver, marker):
+    """Outward flux of u through the facets marked ``marker``: Simpson's
+    rule on each straight P2 edge (2D), exact for P2."""
+    space = solver.space
+    mesh = space.mesh
+    u, _ = space.split(solver.solution)
+    u = u.double().cpu().numpy()
+    fids = solver._boundary_markers.ids_with_value(marker)
+    ends = space._u_node_map[mesh.facets[fids]]            # (nf, 2)
+    mids = space._u_node_map[mesh.n_vertices + fids]      # edge == facet
+    pts = mesh.points[mesh.facets[fids]]
+    length = np.linalg.norm(pts[:, 1] - pts[:, 0], axis=1)
+    normal = mesh.facet_outward_normals(fids)
+
+    def un(nodes):
+        return np.einsum("fd,fd->f", u[nodes], normal)
+
+    return float(np.sum(length / 6.0 * (un(ends[:, 0]) + un(ends[:, 1])
+                                         + 4.0 * un(mids))))
+
+
+def recirculation_length(solver):
+    """Length of the recirculation behind the step (x = 2): where u_x on
+    the lowest row of velocity nodes above the floor turns positive,
+    minus 2."""
+    u, _ = solver.space.split(solver.solution)
+    u = u.double().cpu().numpy()
+    x = solver.space.u_coords
+    ys = np.unique(np.round(x[:, 1], 12))
+    row = (np.abs(x[:, 1] - ys[1]) < 1e-12) & (x[:, 0] > 2.0)
+    order = np.argsort(x[row, 0])
+    xs, ux = x[row, 0][order], u[row, 0][order]
+    back = np.nonzero(ux < 0.0)[0]
+    if len(back) == 0:
+        return 0.0
+    i = back[-1]
+    if i + 1 >= len(xs):
+        return float(xs[-1] - 2.0)
+    # linear interpolation of the sign change
+    t = ux[i] / (ux[i] - ux[i + 1])
+    return float(xs[i] + t * (xs[i + 1] - xs[i]) - 2.0)
+
+
+def xdmf_round_trip(mesh, markers):
+    """Write and read back ``mesh`` through the inline-XML branch of
+    mesh/xdmf_io.py (the card's machine has no h5py); True when every
+    array comes back equal."""
+    saved = xdmf_io._h5py
+    xdmf_io._h5py = lambda: None
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "mesh.xdmf")
+            xdmf_io.write_xdmf_mesh(path, mesh, facet_markers=markers)
+            inline = not os.path.exists(path[:-5] + ".h5")
+            m2, k2 = xdmf_io.read_xdmf_mesh(path)
+    finally:
+        xdmf_io._h5py = saved
+    return inline and all(np.array_equal(getattr(mesh, a), getattr(m2, a))
+                          for a in ("points", "cells", "facets")) \
+        and np.array_equal(markers.facet_ids, k2.facet_ids) \
+        and np.array_equal(markers.values, k2.values)
+
+
+def bfs_problem(device, mesh=None):
+    return BackwardFacingStep(None, mesh=mesh, device=device,
+                              dtype=torch.float64,
+                              solver_options={"linear_solver": "host_lu"})
+
+
+def phase_bfs(dev, smi):
+    """demo/backward_facing_step.py's StationaryProblem on the card (f64,
+    host LU) on the built-in mesh and on the shipped gmsh mesh; returns
+    (launches, the built-in mesh's solver)."""
+    cuda_band.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    out, solvers = {}, {}
+    geo = os.path.join(os.path.dirname(os.path.abspath(__file__)), "meshes",
+                       "backward_facing_step.geo")
+    for name, mesh in (("builtin", None), ("gmsh", read_geo_msh(geo))):
+        problem = bfs_problem(dev, mesh)
+        solver, rec, seconds = solve_stationary(problem, f"bfs {name}")
+        bm = problem._boundary_marker_map
+        q_in = -boundary_flux(solver, bm["inlet"])
+        q_out = boundary_flux(solver, bm["outlet"])
+        solvers[name] = solver
+        out[name] = {"n_cells": solver.space.mesh.n_cells,
+                     "n_dofs": solver.space.n_dofs, "seconds": seconds,
+                     "picard_iterations": rec["picard_iterations"],
+                     "newton_iterations": rec["newton_iterations"],
+                     "residual": rec["residual"], "inflow": q_in,
+                     "outflow": q_out,
+                     "flux_rel_err": abs(q_out - q_in) / abs(q_in),
+                     "recirculation_length": recirculation_length(solver),
+                     "xdmf_inline_round_trip": xdmf_round_trip(
+                         solver.space.mesh, solver._boundary_markers)}
+    launches = dict(cuda_band.LAUNCHES)
+    emit({"phase": "bfs",
+          "config": "backward-facing step, Re 50, f64, StationaryProblem "
+                    "(demo/backward_facing_step.py), linear_solver host_lu",
+          "meshes": out, "launches": launches,
+          "peak_device_bytes": torch.cuda.max_memory_allocated(),
+          "nvidia_smi": smi})
+    bad = [name for name, o in out.items()
+           if not (o["flux_rel_err"] <= 1e-8 and o["residual"] <= 1e-10
+                   and o["xdmf_inline_round_trip"])]
+    if bad:
+        raise AssertionError(f"bfs guards failed on {bad}")
+    return launches, solvers["builtin"]
+
+
+def phase_blasius(dev, smi):
+    """demo/blasius_flow.py's StationaryProblem on the card (f64, host
+    LU)."""
+    cuda_band.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    problem = BlasiusFlow(None, device=dev, dtype=torch.float64,
+                          solver_options={"linear_solver": "host_lu"})
+    solver, rec, seconds = solve_stationary(problem, "blasius")
+    u, _ = solver.space.split(solver.solution)
+    u = u.double().cpu().numpy()
+    x = solver.space.u_coords
+    plate = (np.abs(x[:, 1] - 0.5) < 1e-12) & (x[:, 0] > -1e-12) \
+        & (x[:, 0] < 1 + 1e-12)
+    launches = dict(cuda_band.LAUNCHES)
+    out = {"phase": "blasius",
+           "config": "flat plate, Re 200, f64, StationaryProblem "
+                     "(demo/blasius_flow.py), linear_solver host_lu",
+           "n_dofs": solver.space.n_dofs, "seconds": seconds,
+           "picard_iterations": rec["picard_iterations"],
+           "newton_iterations": rec["newton_iterations"],
+           "residual": rec["residual"],
+           "plate_velocity_max": float(np.abs(u[plate]).max()),
+           "u_x_max": float(u[:, 0].max()), "launches": launches,
+           "peak_device_bytes": torch.cuda.max_memory_allocated(),
+           "nvidia_smi": smi}
+    emit(out)
+    if not (rec["residual"] <= 1e-10 and out["plate_velocity_max"] <= 1e-12
+            and np.isfinite(u).all()):
+        raise AssertionError(f"blasius guards failed: {out}")
+    return launches
+
+
+def phase_mesh3d_parity(dev, smi, bfs_card):
+    """f64, the card against the CPU: 10 steps of the 3D cavity at 6^3 on
+    the banded path, 10 cell-loop steps on the shell at n = 6 (forced by a
+    band budget no format meets), and the backward-facing step's
+    stationary solution."""
+    steps = MESH3D["parity_steps"]
+    cuda_band.reset_launch_counts()
+    out = {}
+    for name, build in (
+            ("cavity3d", lambda d: make_cavity3d(
+                MESH3D["parity_cavity_n"], d, torch.float64)),
+            ("shell_cell_loop", lambda d: make_shell(
+                MESH3D["parity_shell_n"], d, torch.float64, 0.05))):
+        saved = os.environ.get("NS_FASTOP_MAX_BYTES")
+        if name == "shell_cell_loop":
+            os.environ["NS_FASTOP_MAX_BYTES"] = "1e4"
+        try:
+            runs = []
+            for where in (dev, "cpu"):
+                solver, ts = build(where)
+                advance(solver, ts, steps)
+                runs.append(solver)
+        finally:
+            if saved is None:
+                os.environ.pop("NS_FASTOP_MAX_BYTES", None)
+            else:
+                os.environ["NS_FASTOP_MAX_BYTES"] = saved
+        kinds = [s._step_kind for s in runs]
+        out[name] = {"step_kind": kinds[0],
+                     "u": rel_err(runs[0]._u, runs[1]._u),
+                     "p": rel_err(runs[0]._p, runs[1]._p)}
+        want = "fast" if name == "cavity3d" else "generic"
+        if kinds != [want, want]:
+            raise AssertionError(f"mesh3d_parity {name}: step kinds {kinds}")
+    launches = dict(cuda_band.LAUNCHES)
+    cpu, _, _ = solve_stationary(bfs_problem("cpu"), "bfs (CPU)")
+    out["bfs"] = {"x": rel_err(bfs_card.solution, cpu.solution)}
+    emit({"phase": "mesh3d_parity",
+          "config": f"f64, card vs CPU: cavity {MESH3D['parity_cavity_n']}^3 "
+                    f"and the shell n = {MESH3D['parity_shell_n']} (cell "
+                    f"loop) {steps} steps each, the backward-facing step's "
+                    "stationary solution",
+          "rel_err": out, "launches": launches, "nvidia_smi": smi})
+    bad = [k for k in ("cavity3d", "shell_cell_loop")
+           if not max(out[k]["u"], out[k]["p"]) <= 1e-12]
+    if not out["bfs"]["x"] <= 1e-10:
+        bad.append("bfs")
+    if bad:
+        raise AssertionError(f"mesh3d_parity failed: {bad}")
+    return launches
+
+
+GROUPS = ("kernels", "structured", "solver", "problems", "newton", "mesh3d")
 
 
 def main():
@@ -2686,6 +3442,21 @@ def main():
                                                        args.profile)
         by_path["bdf_dfg"] = phase_bdf_dfg(dev, smi, args.profile)
         by_path["newton_parity"] = phase_newton_parity(dev)
+    mesh3d_t = None
+    if "mesh3d" in groups:
+        t_group = time.perf_counter()
+        solver3d, ts3d, by_path["cavity3d"] = phase_cavity3d(dev, smi,
+                                                             args.profile)
+        by_path["cavity3d_kernels"], solves3d, applies3d, err_3d = \
+            phase_cavity3d_kernels(solver3d, ts3d, smi)
+        mesh3d_t = {"solves": solves3d, "applies": applies3d}
+        del solver3d, ts3d
+        by_path["duct3d"] = phase_duct3d(dev, smi)
+        by_path["shell3d"] = phase_shell3d(dev, smi, args.profile)
+        by_path["bfs"], bfs_card = phase_bfs(dev, smi)
+        by_path["blasius"] = phase_blasius(dev, smi)
+        by_path["mesh3d_parity"] = phase_mesh3d_parity(dev, smi, bfs_card)
+        emit({"phase": "mesh3d", "seconds": time.perf_counter() - t_group})
 
     emit({"phase": "total", "seconds": time.perf_counter() - t_start,
           "groups": sorted(groups)})
@@ -2697,10 +3468,15 @@ def main():
         # (dfg_parity) the RCM bands of L and Mp fit the circulant cap
         # the Newton group's paths apply no band operator: their counts
         # are reported (0 expected) and not required
-        newton = ("newton_dfg", "newton_cavity", "bdf_dfg", "newton_parity")
+        # the mesh3d group: the banded paths (cavity3d, its kernels twin,
+        # duct3d) apply the bands; shell3d takes the cell loop, bfs and
+        # blasius the stationary solver, which apply no band operator
+        newton = ("newton_dfg", "newton_cavity", "bdf_dfg", "newton_parity",
+                  "shell3d", "bfs", "blasius")
         on_path = {"circulant_apply": [p for p in by_path
                                        if p != "dfg" and p not in newton],
-                   "circulant_pcg": ["main", "solver_cavity_kernels"]}
+                   "circulant_pcg": ["main", "solver_cavity_kernels",
+                                     "cavity3d_kernels"]}
         for name, paths in on_path.items():
             for path in paths:
                 if by_path[path][name] <= 0:
@@ -2723,10 +3499,14 @@ def main():
                     "max_abs_err": err, **{k: t[k] for k in keys}, **extra}
 
         print(json.dumps({"kernels": [
-            row("circulant_apply", err_apply, apply_t, {}),
-            row("circulant_pcg", max(err_pcg, err_cavity), pcg_t,
+            row("circulant_apply", err_apply, apply_t,
+                {"cavity3d_applies": mesh3d_t["applies"]}),
+            row("circulant_pcg", max(err_pcg, err_cavity, err_3d), pcg_t,
                 {"cavity_solves": {n: {k: t[k] for k in cavity_keys}
-                                   for n, t in cavity_t.items()}})]}),
+                                   for n, t in cavity_t.items()},
+                 "cavity3d_solves": {n: {k: t[k] for k in cavity_keys}
+                                     for n, t in mesh3d_t["solves"]
+                                     .items()}})]}),
             flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -23,8 +23,11 @@ package; the device formats hold torch tensors:
 * ``StridedConv`` -- the convection quadrature over translation classes
   of cells, as static slices of the wrap-padded parity phases.
 
-Not ported yet: 3D (``FastTaylorHood`` raises ``NotImplementedError``
-naming ROADMAP item 5d).
+The engine is dimension-agnostic, as the JAX one is: on 3D boxes the
+square operators are circulant under the lexicographic order (65 offsets
+for the P2 mass and stiffness, 15 for the P1 Laplacian) and the couplings
+rim operators; the torus stencils and the strided convection are 2D only,
+so 3D convection takes the gather form.
 """
 
 from __future__ import annotations
@@ -777,21 +780,19 @@ class FastTaylorHood:
     card; the CPU only with ``device="cpu"``) in ``dtype`` (default:
     ``config.default_dtype(device)``).
 
-    2D meshes are ported: on structured boxes the square operators are
+    On structured boxes the square operators are
     circulant under the lexicographic order (``structured``), the
     couplings torus stencils on periodic boxes and rim operators
     (``AffineBand`` / ``GatherOp``) otherwise; on unstructured meshes
     every operator is an ``AffineBand`` (or a ``GatherOp`` coupling) under
-    the RCM order.  3D spaces (ROADMAP item 5d) raise
-    ``NotImplementedError``.
+    the RCM order.  3D spaces take the same path: circulant squares on
+    boxes, rim couplings, and the gather convection (the torus stencils
+    and ``StridedConv`` are 2D only).
     """
 
     def __init__(self, space, dtype=None, device=None, *,
                  circulant_cap=cuda_band.MAX_OFFSETS, window_cap=6144,
                  max_bytes=None):
-        if space.dim != 2:
-            raise NotImplementedError(
-                "3D is not ported yet (ROADMAP item 5d)")
         self.space = space
         self.dim = space.dim
         self.device = device = config.require_device(device)
@@ -847,7 +848,8 @@ class FastTaylorHood:
         # rectangular couplings: exact class-constant stencil on
         # translation-class torus grids; else banded while cheap,
         # sorted-COO gather beyond NS_FASTOP_RIM_BYTES
-        grids = _torus_grids(ucoords, pcoords) if self.structured else None
+        grids = _torus_grids(ucoords, pcoords) \
+            if self.structured and self.dim == 2 else None
         self.G, self.D = [], []
         for d, Gd in enumerate(Gs):
             Gp = Gd.tocsr()[permU][:, permP]
@@ -892,11 +894,14 @@ class FastTaylorHood:
                     conv_g2=dev_f(g2),
                     conv_table=torch.as_tensor(tab.astype(np.int64),
                                                device=dev))
-        # detect on the storage-dtype values, as the JAX engine does
-        got = _detect_strided_convection(
-            cu_p, node_coordinates(space)[0],
-            np.asarray(W.astype(np_dt), np.float64),
-            np.asarray(g2.astype(np_dt), np.float64))
+        # detect on the storage-dtype values, as the JAX engine does; the
+        # translation classes are 2D (3D keeps the gather form)
+        got = None
+        if self.structured and self.dim == 2:
+            got = _detect_strided_convection(
+                cu_p, node_coordinates(space)[0],
+                np.asarray(W.astype(np_dt), np.float64),
+                np.asarray(g2.astype(np_dt), np.float64))
         self.conv_strided = None
         if got is not None:
             self.conv_strided, Wc, g2c = got

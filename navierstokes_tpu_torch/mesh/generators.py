@@ -1,13 +1,22 @@
 """Mesh generators (``navierstokes_tpu/mesh/generators.py``).
 
-Ported: the axis-aligned rectangle (right-diagonal triangles) and box
-(Kuhn 6-tet subdivision), the unit square and cube built on them, the
-unit cube with opening windows, and the DFG 2D-2 cylinder-in-channel
-point-cloud mesh (``channel_with_cylinder``) with its isoparametric
-boundary snap (``circle_snap``; ``sphere_snap`` for concentric circles).
-Every array equals the JAX package's: the same seeded cloud and the same
-``scipy.spatial.Delaunay``.  The spherical shell, the backward-facing step
-and the Blasius plate are not ported yet.
+All of the JAX package's generators, returning host NumPy data:
+
+* structured: the axis-aligned rectangle (right-diagonal triangles) and
+  box (Kuhn 6-tet subdivision), the unit square and cube built on them,
+  the unit cube with opening windows;
+* ``spherical_shell``: a structured polar annulus in 2D, and in 3D a
+  cube-sphere surface times radial layers, each hexahedron cut into 12
+  tetrahedra through its centroid; both carry ``sphere_snap`` on the two
+  boundary spheres;
+* ``channel_with_cylinder`` (DFG 2D-2, point cloud + Delaunay, with
+  ``circle_snap``), ``backward_facing_step`` (two structured blocks) and
+  ``blasius_plate`` (a rectangle whose interior facets along the plate are
+  marked for an internal no-slip constraint), each returning
+  ``(mesh, markers, marker_map)``.
+
+Every array equals the JAX package's: the same construction, the same
+seeded cloud and the same ``scipy.spatial.Delaunay``.
 """
 
 from __future__ import annotations
@@ -18,7 +27,10 @@ import os
 import numpy as np
 
 from navierstokes_tpu_torch.mesh.core import SimplexMesh, merge_markers
-from navierstokes_tpu_torch.mesh.markers import HyperCubeBoundaryMarkers
+from navierstokes_tpu_torch.mesh.markers import (
+    HyperCubeBoundaryMarkers,
+    SphericalAnnulusBoundaryMarkers,
+)
 
 _TOL = 1.0e-10
 
@@ -176,6 +188,59 @@ def open_hyper_cube(dim, n_points=10, openings=None):
         pieces.append((ids, HyperCubeBoundaryMarkers.opening.value))
 
     return mesh, merge_markers(pieces)
+
+
+# ---------------------------------------------------------------------------
+# spherical shell
+# ---------------------------------------------------------------------------
+
+def spherical_shell(dim, radii, n_points=10):
+    """Annular shell mesh; 2D is a structured polar grid.
+
+    Replaces the reference's mshr/CGAL CSG meshing (grid_generator.py:67-108).
+    ``n_points`` plays the role of the mshr resolution: the target edge
+    length is ``2 * r_outer / n_points``.
+    """
+    if dim not in (2, 3):
+        raise ValueError(f"spherical_shell takes dim 2 or 3, got {dim}")
+    ri, ro = (float(r) for r in radii)
+    if not 0.0 < ri < ro:
+        raise ValueError(f"radii must satisfy 0 < inner < outer, got "
+                         f"{radii}")
+    if dim == 3:
+        return _spherical_shell_3d(ri, ro, n_points)
+
+    h = 2.0 * ro / max(int(n_points), 3)
+    n_r = max(2, int(math.ceil((ro - ri) / h)))
+    n_t = max(8, int(math.ceil(2.0 * math.pi * (0.5 * (ri + ro)) / h)))
+
+    r = np.linspace(ri, ro, n_r + 1)
+    theta = np.linspace(0.0, 2.0 * math.pi, n_t, endpoint=False)
+    R, T = np.meshgrid(r, theta, indexing="ij")
+    points = np.stack([(R * np.cos(T)).ravel(), (R * np.sin(T)).ravel()],
+                      axis=1)
+
+    def vid(i, j):
+        return i * n_t + (j % n_t)
+
+    I, J = np.meshgrid(np.arange(n_r), np.arange(n_t), indexing="ij")
+    I, J = I.ravel(), J.ravel()
+    v00, v10 = vid(I, J), vid(I + 1, J)
+    v01, v11 = vid(I, J + 1), vid(I + 1, J + 1)
+    cells = np.concatenate([np.stack([v00, v10, v11], axis=1),
+                            np.stack([v00, v11, v01], axis=1)], axis=0)
+    mesh = SimplexMesh(points, cells)
+
+    inner_ids = mesh.mark_exterior_facets(
+        lambda x: np.abs(np.hypot(x[:, 0], x[:, 1]) - ri) < 1e-9 * ro)
+    outer_ids = mesh.mark_exterior_facets(
+        lambda x: np.abs(np.hypot(x[:, 0], x[:, 1]) - ro) < 1e-9 * ro)
+    markers = merge_markers([
+        (inner_ids, SphericalAnnulusBoundaryMarkers.interior_boundary.value),
+        (outer_ids, SphericalAnnulusBoundaryMarkers.exterior_boundary.value),
+    ])
+    mesh.snap = sphere_snap(np.zeros(2), (ri, ro), tol=1e-6 * ro)
+    return mesh, markers
 
 
 # ---------------------------------------------------------------------------
@@ -417,3 +482,172 @@ def channel_with_cylinder(resolution=1.0, curved=True, wake=1.0,
     if curved:
         mesh.snap = circle_snap(cx, cy, rad, tol=1e-6 * rad)
     return mesh, markers, marker_map
+
+
+def backward_facing_step(resolution=1.0):
+    """Channel with a backward-facing step.
+
+    Inlet channel y in [0.5, 1] (matching the reference demo's inlet profile
+    h=0.5, y0=0.5, demo/backward_facing_step.py:23-24), step at x=2,
+    expanded channel [2, 12] x [0, 1].  Structured triangulation.
+
+    Returns ``(mesh, markers, marker_map)`` with names inlet/outlet/walls.
+    """
+    n = max(4, int(round(8 * resolution)))  # cells across the half-height
+    h = 0.5 / n
+    # union of two structured blocks sharing the interface x=2, y in [0.5,1]
+    p1, c1 = _structured_rectangle((0.0, 0.5), (2.0, 1.0),
+                                   (int(round(2.0 / h)), n))
+    p2, c2 = _structured_rectangle((2.0, 0.0), (12.0, 1.0),
+                                   (int(round(10.0 / h)), 2 * n))
+    points = np.concatenate([p1, p2], axis=0)
+    cells = np.concatenate([c1, c2 + len(p1)], axis=0)
+    # merge duplicate points on the shared interface
+    rounded = np.round(points, 9)
+    uniq, inv = np.unique(rounded, axis=0, return_inverse=True)
+    cells = inv[cells]
+    mesh = SimplexMesh(uniq, cells.astype(np.int32))
+
+    tol = 1e-9
+    marker_map = {"inlet": 1, "outlet": 2, "walls": 3}
+    inlet = mesh.mark_exterior_facets(lambda x: x[:, 0] < tol)
+    outlet = mesh.mark_exterior_facets(lambda x: x[:, 0] > 12.0 - tol)
+    everything = mesh.exterior_facet_ids
+    walls = np.setdiff1d(everything, np.concatenate([inlet, outlet]))
+    markers = merge_markers([(walls, marker_map["walls"]),
+                             (inlet, marker_map["inlet"]),
+                             (outlet, marker_map["outlet"])])
+    return mesh, markers, marker_map
+
+
+def blasius_plate(resolution=1.0):
+    """Zero-thickness flat plate embedded in a free stream.
+
+    Rectangle [-1, 2] x [0, 1] with the plate on the segment
+    y = 0.5, x in [0, 1]; interior facets along the plate are marked so a
+    no-slip *internal constraint* can pin the velocity there (the reference
+    demo applies VelocityBCType.no_slip via set_internal_constraints,
+    demo/blasius_flow.py:33-34).
+
+    Returns ``(mesh, markers, marker_map)`` with names
+    inlet/outlet/bottom/top/plate.
+    """
+    n = max(8, int(round(16 * resolution)))  # cells per unit length
+    mesh, _ = hyper_rectangle((-1.0, 0.0), (2.0, 1.0), (3 * n, n))
+
+    tol = 1e-9
+    marker_map = {"inlet": 1, "outlet": 2, "bottom": 3, "top": 4, "plate": 5}
+    inlet = mesh.mark_exterior_facets(lambda x: x[:, 0] < -1.0 + tol)
+    outlet = mesh.mark_exterior_facets(lambda x: x[:, 0] > 2.0 - tol)
+    bottom = mesh.mark_exterior_facets(lambda x: x[:, 1] < tol)
+    top = mesh.mark_exterior_facets(lambda x: x[:, 1] > 1.0 - tol)
+
+    # interior plate facets: both vertices on y=0.5, 0<=x<=1
+    fv = mesh.points[mesh.facets]
+    on_plate = (np.all(np.abs(fv[:, :, 1] - 0.5) < tol, axis=1)
+                & np.all(fv[:, :, 0] > -tol, axis=1)
+                & np.all(fv[:, :, 0] < 1.0 + tol, axis=1)
+                & ~mesh.exterior_facet_mask)
+    plate = np.nonzero(on_plate)[0].astype(np.int32)
+    if len(plate) == 0:
+        raise ValueError("blasius_plate: no interior facet lies on the "
+                         "plate at this resolution")
+
+    markers = merge_markers([(inlet, marker_map["inlet"]),
+                             (outlet, marker_map["outlet"]),
+                             (bottom, marker_map["bottom"]),
+                             (top, marker_map["top"]),
+                             (plate, marker_map["plate"])])
+    return mesh, markers, marker_map
+
+
+def _spherical_shell_3d(ri, ro, n_points):
+    """3D spherical shell: cube-sphere surface x radial layers.
+
+    Hexahedral cells are tetrahedralized through their centroid (12 tets
+    per hex), with every quad face split along the diagonal through its
+    lowest-global-index vertex -- a consistent rule, so the mesh is
+    conforming.  Replaces the reference's mshr Sphere CSG meshing
+    (grid_generator.py:92-95).
+    """
+    h = 2.0 * ro / max(int(n_points), 3)
+    n_face = max(2, int(math.ceil(0.5 * math.pi * ro / h)))
+    n_r = max(1, int(math.ceil((ro - ri) / h)))
+
+    # cube-sphere surface directions: 6 faces, deduplicated by direction
+    t = np.linspace(-1.0, 1.0, n_face + 1)
+    A, B = np.meshgrid(t, t, indexing="ij")
+    ones = np.ones_like(A)
+    face_grids = [
+        np.stack([ones, A, B], axis=-1), np.stack([-ones, A, B], axis=-1),
+        np.stack([A, ones, B], axis=-1), np.stack([A, -ones, B], axis=-1),
+        np.stack([A, B, ones], axis=-1), np.stack([A, B, -ones], axis=-1),
+    ]
+    dirs, quads = [], []
+    key_to_id = {}
+    for grid in face_grids:
+        pts = grid.reshape(-1, 3)
+        d = pts / np.linalg.norm(pts, axis=1, keepdims=True)
+        ids = np.empty(len(d), dtype=np.int64)
+        for i, v in enumerate(np.round(d, 9)):
+            key = tuple(v)
+            if key not in key_to_id:
+                key_to_id[key] = len(dirs)
+                dirs.append(d[i])
+            ids[i] = key_to_id[key]
+        ids = ids.reshape(n_face + 1, n_face + 1)
+        for i in range(n_face):
+            for j in range(n_face):
+                quads.append((ids[i, j], ids[i + 1, j],
+                              ids[i + 1, j + 1], ids[i, j + 1]))
+    dirs = np.asarray(dirs)
+    quads = np.asarray(quads, dtype=np.int64)
+    n_surf = len(dirs)
+
+    # radial layers of surface points
+    radii_levels = np.linspace(ri, ro, n_r + 1)
+    points = (radii_levels[:, None, None] * dirs[None, :, :]).reshape(-1, 3)
+
+    def nid(layer, surf):
+        return layer * n_surf + surf
+
+    cells = []
+    pts_list = [points]
+    next_new = len(points)
+    for layer in range(n_r):
+        for quad in quads:
+            bottom = [nid(layer, s) for s in quad]
+            top = [nid(layer + 1, s) for s in quad]
+            hex_pts = np.concatenate([pts_list[0][bottom],
+                                      pts_list[0][top]], axis=0)
+            centroid = hex_pts.mean(axis=0)
+            c_id = next_new
+            pts_list.append(centroid[None, :])
+            next_new += 1
+            # 6 quad faces of the hex (outward orientation irrelevant)
+            b0, b1, b2, b3 = bottom
+            t0, t1, t2, t3 = top
+            faces = [(b0, b1, b2, b3), (t0, t1, t2, t3),
+                     (b0, b1, t1, t0), (b1, b2, t2, t1),
+                     (b2, b3, t3, t2), (b3, b0, t0, t3)]
+            for f in faces:
+                # split along the diagonal through the min-index vertex
+                k = int(np.argmin(f))
+                a, b, c, d = f[k], f[(k + 1) % 4], f[(k + 2) % 4], \
+                    f[(k + 3) % 4]
+                cells.append((a, b, c, c_id))
+                cells.append((a, c, d, c_id))
+    points = np.concatenate(pts_list, axis=0)
+    mesh = SimplexMesh(points, np.asarray(cells, dtype=np.int32))
+
+    r_of = np.linalg.norm
+    inner_ids = mesh.mark_exterior_facets(
+        lambda x: np.abs(r_of(x, axis=1) - ri) < 1e-9 * ro)
+    outer_ids = mesh.mark_exterior_facets(
+        lambda x: np.abs(r_of(x, axis=1) - ro) < 1e-9 * ro)
+    markers = merge_markers([
+        (inner_ids, SphericalAnnulusBoundaryMarkers.interior_boundary.value),
+        (outer_ids, SphericalAnnulusBoundaryMarkers.exterior_boundary.value),
+    ])
+    mesh.snap = sphere_snap(np.zeros(3), (ri, ro), tol=1e-6 * ro)
+    return mesh, markers

@@ -1,1 +1,7 @@
-"""Multi-device layer.  Only the host-side scatter table is ported so far."""
+"""The cell-loop operators on one device; the multi-device layer
+(ROADMAP item 15) is not ported yet."""
+
+from navierstokes_tpu_torch.parallel.sharded import (  # noqa: F401
+    ShardedCellOperator,
+    device_mesh,
+)

@@ -1,6 +1,7 @@
 """Benchmark setups: the periodic initial states (counterpart of
-``__graft_entry__.py::_taylor_green_setup``) and the wall-bounded boxes
-driven through the solver API (lid-driven cavity, channel)."""
+``__graft_entry__.py::_taylor_green_setup``) and the wall-bounded domains
+driven through the solver API (lid-driven cavity in 2D and 3D, channel,
+the 3D duct, spherical Couette flow)."""
 
 from __future__ import annotations
 
@@ -8,8 +9,10 @@ import numpy as np
 
 from navierstokes_tpu_torch.fem.bcs import PressureBCType, VelocityBCType
 from navierstokes_tpu_torch.fem.spaces import TaylorHoodSpace, axis_periodic
-from navierstokes_tpu_torch.mesh import (HyperCubeBoundaryMarkers, hyper_cube,
-                                         hyper_rectangle)
+from navierstokes_tpu_torch.mesh import (HyperCubeBoundaryMarkers,
+                                         SphericalAnnulusBoundaryMarkers,
+                                         hyper_cube, hyper_rectangle,
+                                         spherical_shell)
 
 
 def taylor_green_setup(n_points, dim=2):
@@ -47,21 +50,24 @@ def taylor_green_setup(n_points, dim=2):
 
 
 def _lid(x):
-    return np.stack([np.ones(len(x)), np.zeros(len(x))], axis=1)
+    lid = np.zeros_like(x)
+    lid[:, 0] = 1.0
+    return lid
 
 
-def lid_driven_cavity_setup(n):
+def lid_driven_cavity_setup(n, dim=2):
     """``(mesh, markers, bcs)`` of the lid-driven cavity on the unit square
-    with ``n`` cells per side: no slip on three walls, unit tangential
-    speed on the top lid, zero mean pressure (the boundary conditions of
-    ``benchmarks/cavity_re1000.py``)."""
+    (cube, ``dim=3``) with ``n`` cells per side: no slip on the walls,
+    the unit velocity (1, 0[, 0]) on the top lid, zero mean pressure (the
+    boundary conditions of ``benchmarks/cavity_re1000.py``; in 3D those of
+    ``tests/test_3d_solver.py``'s cavity)."""
     M = HyperCubeBoundaryMarkers
-    mesh, markers = hyper_cube(2, n)
-    bcs = ((VelocityBCType.no_slip, M.left.value, None),
-           (VelocityBCType.no_slip, M.right.value, None),
-           (VelocityBCType.no_slip, M.bottom.value, None),
-           (VelocityBCType.function, M.top.value, _lid),
-           (PressureBCType.mean_value, None, 0.0))
+    mesh, markers = hyper_cube(dim, n)
+    walls = (M.left, M.right, M.bottom) + ((M.back, M.front)
+                                           if dim == 3 else ())
+    bcs = tuple((VelocityBCType.no_slip, w.value, None) for w in walls) + (
+        (VelocityBCType.function, M.top.value, _lid),
+        (PressureBCType.mean_value, None, 0.0))
     return mesh, markers, bcs
 
 
@@ -81,3 +87,63 @@ def channel_setup(nx, ny, inlet=parabolic_inlet):
            (VelocityBCType.no_slip, M.top.value, None),
            (PressureBCType.constant, M.right.value, 0.0))
     return mesh, markers, bcs
+
+
+def duct_setup(n_points=(9, 3, 3)):
+    """``(mesh, markers, bcs)`` of the 3D duct [0, 3] x [0, 1] x [0, 1] of
+    ``tests/test_3d_solver.py``: the plane Poiseuille profile
+    u = (y (1 - y), 0, 0) at the inlet, no slip on the plates y = 0, 1,
+    no normal flux on the side walls z = 0, 1, zero pressure at the
+    outlet.  The profile lies in the P2 space and is constant in z, so it
+    is the exact steady state."""
+    M = HyperCubeBoundaryMarkers
+    mesh, markers = hyper_rectangle((0.0, 0.0, 0.0), (3.0, 1.0, 1.0),
+                                    tuple(n_points))
+    bcs = ((VelocityBCType.function, M.left.value, duct_profile),
+           (VelocityBCType.no_slip, M.bottom.value, None),
+           (VelocityBCType.no_slip, M.top.value, None),
+           (VelocityBCType.no_normal_flux, M.back.value, None),
+           (VelocityBCType.no_normal_flux, M.front.value, None),
+           (PressureBCType.constant, M.right.value, 0.0))
+    return mesh, markers, bcs
+
+
+def duct_profile(x, t=None):
+    """The duct's exact velocity u = (y (1 - y), 0, 0)."""
+    u = np.zeros((len(x), 3))
+    u[:, 0] = x[:, 1] * (1 - x[:, 1])
+    return u
+
+
+def spherical_couette_setup(n_points, radii=(0.5, 1.0), omega=1.0):
+    """``(mesh, markers, bcs)`` of spherical Couette flow: the inner
+    sphere of ``spherical_shell(3, radii, n_points)`` rotates about z at
+    rate ``omega`` (u = omega e_z x x), the outer sphere is at rest, zero
+    mean pressure."""
+    S = SphericalAnnulusBoundaryMarkers
+    mesh, markers = spherical_shell(3, radii, n_points)
+
+    def rotating(x):
+        u = np.zeros_like(x)
+        u[:, 0] = -omega * x[:, 1]
+        u[:, 1] = omega * x[:, 0]
+        return u
+
+    bcs = ((VelocityBCType.function, S.interior_boundary.value, rotating),
+           (VelocityBCType.no_slip, S.exterior_boundary.value, None),
+           (PressureBCType.mean_value, None, 0.0))
+    return mesh, markers, bcs
+
+
+def spherical_couette_stokes(x, radii=(0.5, 1.0), omega=1.0):
+    """The Stokes solution of spherical Couette flow, u = u_phi e_phi with
+    u_phi = omega sin(theta) ri^3 ro^3 / (ro^3 - ri^3) (1/r^2 - r/ro^3),
+    as (n, 3) Cartesian vectors."""
+    ri, ro = radii
+    r = np.linalg.norm(x, axis=1)
+    amp = omega * ri ** 3 * ro ** 3 / (ro ** 3 - ri ** 3) \
+        * (1.0 / r ** 2 - r / ro ** 3) / r      # u_phi / (r sin(theta))
+    u = np.zeros_like(x)
+    u[:, 0] = -amp * x[:, 1]
+    u[:, 1] = amp * x[:, 0]
+    return u

@@ -11,16 +11,18 @@ the same step functions as the benchmark scripts:
 * on any other mesh the banded engine can hold it lowers to the planar
   SBDF projection step (``solvers/planar_step.py``) with Dirichlet masks,
   per-step time-dependent BC values, a variable step size, and
-  tolerance-controlled CG with per-step residual monitoring.
+  tolerance-controlled CG with per-step residual monitoring;
+* a mesh that no banded format holds (the engine raises
+  ``StructureError``, recorded as ``fastop_fallback``) takes the cell-loop
+  step (``solvers/fused_step.py`` over ``parallel/sharded.py``'s
+  element-matrix operators), with the same boundary data and monitoring.
 
 Scheme: semi-implicit incremental pressure correction with variable-step
 BDF weights alpha from ``BDFTimeStepping`` and matching extrapolation
 weights eta = (1 + omega, -omega).
 
 Not ported yet: the domain-decomposed halo step (``device_mesh`` with more
-than one device, ROADMAP item 15) and the per-cell fallback step for
-meshes no banded format can hold (ROADMAP item 14a); both raise
-``NotImplementedError``.
+than one device, ROADMAP item 15) raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -35,6 +37,9 @@ from navierstokes_tpu_torch.assembly.fastop import (FastTaylorHood,
 from navierstokes_tpu_torch.fem.bcs import PressureBCType
 from navierstokes_tpu_torch.fem.dirichlet import compile_dirichlet_bcs
 from navierstokes_tpu_torch.fem.spaces import _eval_field
+from navierstokes_tpu_torch.parallel.sharded import (ShardedCellOperator,
+                                                     device_mesh)
+from navierstokes_tpu_torch.solvers.fused_step import build_projection_step
 from navierstokes_tpu_torch.solvers.planar_step import \
     build_planar_projection_step
 from navierstokes_tpu_torch.solvers.transient import InstationarySolverBase
@@ -185,14 +190,12 @@ class ProjectionSolver(InstationarySolverBase):
         try:
             self._setup_fast_step(vel_bc, pres_mask, k0)
         except StructureError as exc:
+            # only the engine's own refusal falls back, and visibly
             self.monitor.record("fastop_fallback", reason=str(exc))
-            raise NotImplementedError(
-                "no banded format holds this mesh, and the per-cell "
-                "fallback step (solvers/fused_step.py) is not ported yet "
-                "(ROADMAP item 14a)") from exc
+            self._setup_cell_loop_step(vel_bc, pres_mask, k0)
         self._body_rhs = None
         if self._has_body_force():
-            self._body_rhs = self._fast.interleaved_to_planar(
+            self._body_rhs = self._convert_body_rhs(
                 self._assemble_body_rhs())
 
     def _setup_fast_step(self, vel_bc, pres_mask, k0):
@@ -228,6 +231,26 @@ class ProjectionSolver(InstationarySolverBase):
                 rotational=self._rotational)
         self._step_kind = "fast"
         self._sync_planar_from_canonical()
+
+    def _setup_cell_loop_step(self, vel_bc, pres_mask, k0):
+        """Per-cell gather/scatter step: the fallback for meshes the
+        banded formats cannot hold."""
+        with timed_region(self.monitor, "setup_engine"):
+            ops = ShardedCellOperator(self._space, device_mesh(
+                1, device=self._device), dtype=self._dtype)
+        self._ops = ops
+        self._fused = build_projection_step(
+            self._space, ops, visc=self._visc, dt=k0,
+            cg_iters=self._cg_iters_user or (40, 400, 20),
+            vel_bc=vel_bc, pres_bc_mask=pres_mask,
+            conv_coeff=self._conv_coeff, cg_rtol=self._cg_rtol,
+            with_residuals=True)
+        self._step_kind = "generic"
+
+    def _convert_body_rhs(self, body_rhs_flat):
+        if self._step_kind == "fast":
+            return self._fast.interleaved_to_planar(body_rhs_flat)
+        return self._tensor(body_rhs_flat)
 
     def _sync_planar_from_canonical(self):
         fast = self._fast
@@ -296,7 +319,7 @@ class ProjectionSolver(InstationarySolverBase):
             self._u_old2, self._u_old = self._u_old, self._u
             self._u = self._tensor(u_flat)
             self._p = self._tensor(p)
-        else:
+        elif self._step_kind == "fast":
             fast = self._fast
             bc_values = None
             if len(self._v_dofs):
@@ -320,6 +343,21 @@ class ProjectionSolver(InstationarySolverBase):
             self._u = fast.planar_to_interleaved(u2_new)
             self._p = fast.unpermute_pressure(p2_new)
             self._phi = fast.unpermute_pressure(phi2)
+        else:
+            bc_values = None
+            if len(self._v_dofs):
+                vals_flat = np.zeros(space.n_velocity_dofs)
+                vals_flat[self._v_dofs] = np.asarray(
+                    self._vel_dirichlet.values(next_time))
+                bc_values = self._tensor(vals_flat)
+            u_new, p_new, phi, res = self._fused(
+                self._u, self._u_old, self._p, self._phi, alpha, eta,
+                bc_values=bc_values, k=k, body_rhs=self._body_rhs)
+            self.monitor.record("linear_solve", residual=torch.max(res),
+                                residuals=res, label="projection-cg")
+            self._u_old2, self._u_old = self._u_old, self._u
+            self._u = u_new
+            self._p, self._phi = p_new, phi
 
         self._solutions[0] = space.join(
             self._u.reshape(space.n_unodes, space.dim), self._p)
@@ -338,8 +376,8 @@ class ProjectionSolver(InstationarySolverBase):
         current projection state (u_{n+1}, u_n, u_{n-1}, alpha).  Returns
         a (dim,) tensor on the solver's device without waiting for it.
         """
-        assert self._step_kind == "fast", \
-            "reaction forces need a Dirichlet boundary (the banded path)"
+        assert self._step_kind in ("generic", "fast"), \
+            "reaction forces need a Dirichlet boundary (generic/fast path)"
         assert not self._has_body_force(), \
             "reaction force with body forces: use SolverBase path"
         space = self._space

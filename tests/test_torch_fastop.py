@@ -114,10 +114,12 @@ def test_planar_ops_round_trip(engines):
 
 
 def test_meshes_not_ported_yet_raise():
-    """The 3D engine is not ported yet: it refuses instead of building
-    something else, naming its ROADMAP item.  Operators that are not
-    circulant under the lexicographic order take the RCM ordering (item
-    5a-RCM, now ported): the same order and bands as the JAX engine's."""
+    """(The name dates from when 3D spaces raised.)  Operators that are not
+    circulant under the lexicographic order take the RCM ordering: the
+    same order and bands as the JAX engine's.  The 3D engine is ported:
+    on ``hyper_cube(3, 2)`` its permutations, bands and rim couplings
+    equal the JAX engine's (the full 3D suite is
+    ``tests/test_torch_fastop3d.py``)."""
     mesh, _ = hyper_rectangle((0.0, 0.0), (2.0, 1.0), (12, 6))
     tf = tfo.FastTaylorHood(TaylorHoodSpace(mesh), device="cpu",
                             circulant_cap=4)
@@ -134,5 +136,16 @@ def test_meshes_not_ported_yet_raise():
         assert np.array_equal(getattr(tf, name).bandmat.numpy(),
                               np.asarray(getattr(jf, name).bandmat))
     mesh, _ = hyper_cube(3, 2)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 5d"):
-        tfo.FastTaylorHood(TaylorHoodSpace(mesh), device="cpu")
+    tf = tfo.FastTaylorHood(TaylorHoodSpace(mesh), device="cpu")
+    jmesh, _ = jax_hyper_cube(3, 2)
+    jf = jfo.FastTaylorHood(JaxSpace(jmesh))
+    assert tf.dim == 3 and tf.conv_strided is None
+    assert np.array_equal(tf.permU, np.asarray(jf.permU))
+    assert np.array_equal(tf.permP, np.asarray(jf.permP))
+    for name in ("M", "K", "L", "Mp"):
+        t, j = getattr(tf, name), getattr(jf, name)
+        assert type(t).__name__ == type(j).__name__ == "CirculantBand"
+        assert np.array_equal(t.band.numpy(), np.asarray(j.band))
+    for t, j in zip(tf.G + tf.D, list(jf.G) + list(jf.D)):
+        assert type(t).__name__ == type(j).__name__
+        assert np.array_equal(t.bandmat.numpy(), np.asarray(j.bandmat))

@@ -208,8 +208,10 @@ def test_missing_names_raise_with_their_item():
                                                  dtype=torch.float64),
                                      {"cc": 1.0, "cv": 1.0})
     assert img.shape == (space.n_unodes, 2) and not img.any()
+    # one device is the cell-loop step's mesh; more is item 15
+    assert sharded.device_mesh(1, device="cpu") == [torch.device("cpu")]
     with pytest.raises(NotImplementedError, match="ROADMAP item 15"):
-        sharded.device_mesh(1)
+        sharded.device_mesh(2)
 
 
 # ---------------------------------------------------------------------------
