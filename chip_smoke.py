@@ -127,7 +127,7 @@ non-zero):
                call, which also builds the device pattern, apart from the
                median of the rest), the copy to the host, splu, the solve
                and the residual.
-19. newton_cavity -- demo/cavity_flow.py's StationaryProblem at 128^2,
+19. newton_cavity -- demo/cavity_flow.py's StationaryProblem at 96^2,
                Re = 100, f64, with the card's default linear mode, which
                must resolve to "pcd" (matrix-free PCD + FGMRES + AMG).
                Requires ||F||_2 <= 1e-10 and the vertical centre line's
@@ -191,7 +191,33 @@ non-zero):
                spherical_shell(3, (0.5, 1), 6) forced by
                NS_FASTOP_MAX_BYTES, each <= 1e-12; the backward-facing
                step's stationary solution <= 1e-10.
-29. the total seconds, the ``kernels`` line, then the card's nvidia-smi
+29. halo_shell -- shell3d's case (the same shell, f32, dt and steps)
+               through ProjectionSolver(device_mesh=device_mesh(4)): four
+               shards of one card (shard i on cuda:(i % device_count)),
+               the domain-decomposed halo step ("halo").  shell3d's u_phi
+               guard, and the state within 1e-3 (relative, max-norm) of the
+               one-device cell loop's after the same steps (f32: both run
+               every solve to its cap); prints ms/step, the halo report,
+               the bytes of halo buffers exchanged per step, host syncs and
+               ops per step and the peak memory.
+30. spectral_sharded -- Taylor-Green 128^2 (structured2d's case) through
+               ProjectionSolver(device_mesh=device_mesh(4)) on the
+               slab-sharded spectral step, 200 timed steps, beside the
+               unsharded solver: amp_rel_err < 0.05 and the two states
+               within 1e-5 (f32).
+31. stationary_sharded -- newton_cavity's problem at 64^2 (Re 100, f64)
+               with solver_options device_mesh=device_mesh(4): the
+               cell-sharded residual and Jacobian inside PCD-FGMRES; the
+               first solve converges and the solution is within 1e-10 of
+               the one-device solve's.
+32. multidevice_parity -- f64, 5 steps: the halo step on the 3D cavity
+               6^3 and on the shell n = 6, the sharded spectral step at
+               16^2 and 8^3, the sharded Newton matvec on the cavity 16^2;
+               card vs CPU and 4 shards vs 1 each within 1e-12 (relative,
+               max-norm), a second card run bit for bit; a checkpoint of
+               the sharded channel resumes bit for bit on one device and
+               back, and a resumed sharded run equals the unbroken one.
+33. the total seconds, the ``kernels`` line, then the card's nvidia-smi
    line, then the last line ``{"ok": true, "device": {...}}``.
 
 ``--profile DIR`` also writes a torch.profiler table of 10 steps of each
@@ -200,7 +226,8 @@ DFG, monolithic DFG, 3D cavity, shell), of one Newton iteration of newton_dfg an
 10-iteration PCD-FGMRES restart cycle of newton_cavity (by device time,
 host time and input shape) to DIR.
 ``--phases LIST`` runs only the named groups (``kernels``,
-``structured``, ``solver``, ``problems``, ``newton``, ``mesh3d``; the
+``structured``, ``solver``, ``problems``, ``newton``, ``mesh3d``,
+``multidevice``; the
 device and build phases always run) and then prints no ``kernels`` line.  ``--baseline DIR``
 also times the kernels of another checkout of this repository (its ``navierstokes_tpu_torch``, built from its own
 source) on the same inputs in the same process, in the order baseline,
@@ -224,6 +251,7 @@ import types
 import numpy as np
 import scipy
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from navierstokes_tpu_torch.assembly import cuda_band
 from navierstokes_tpu_torch.assembly.fastop import (FastTaylorHood,
@@ -236,6 +264,8 @@ from navierstokes_tpu_torch.io import load_checkpoint, save_checkpoint
 from navierstokes_tpu_torch.mesh import (backward_facing_step, blasius_plate,
                                          channel_with_cylinder, hyper_cube,
                                          read_geo_msh, xdmf_io)
+from navierstokes_tpu_torch.parallel import device_mesh
+from navierstokes_tpu_torch.parallel.halo import HaloCellOperator
 from navierstokes_tpu_torch.problems import (EquationCoefficientHandler,
                                              InstationaryProblem,
                                              StationaryProblem)
@@ -249,6 +279,8 @@ from navierstokes_tpu_torch.setups import (channel_setup, duct_profile,
 from navierstokes_tpu_torch.solvers import (ImplicitBDFSolver,
                                             ProjectionSolver,
                                             StationarySolver, planar_step)
+from navierstokes_tpu_torch.solvers.halo_step import \
+    build_halo_projection_step
 from navierstokes_tpu_torch.solvers.planar_step import \
     build_planar_projection_step
 from navierstokes_tpu_torch.structured import (PeriodicStructuredTH,
@@ -2178,7 +2210,10 @@ def phase_dfg_parity(dev):
 # group "newton": the stationary and monolithic solvers, f64 on the card
 # ---------------------------------------------------------------------------
 
-NEWTON = {"dfg_res": 3.0, "cavity_n": 128, "cavity_re": 100.0,
+# newton_cavity at 96^2: cut from 128^2 (155-199 s of host-bound
+# PCD-FGMRES on an H100 at 700 W) to keep the whole script inside its
+# time limit with the multidevice group
+NEWTON = {"dfg_res": 3.0, "cavity_n": 96, "cavity_re": 100.0,
           "bdf_res": 3.0, "bdf_dt": 0.005, "bdf_steps": 100,
           "bdf_seed": "benchmarks/states/dfg_2d2_state_mono_res3_sym.npz",
           "parity_n": 12, "parity_steps": 5,
@@ -2508,7 +2543,7 @@ def profile_pcd_cycle(solver, smi, profile_dir):
 
 
 def phase_newton_cavity(dev, smi, profile_dir):
-    """The cavity demo as a StationaryProblem at 128^2 with the card's own
+    """The cavity demo as a StationaryProblem at 96^2 with the card's own
     linear mode: matrix-free PCD + FGMRES + AMG, no factorization."""
     n, re = NEWTON["cavity_n"], NEWTON["cavity_re"]
     cuda_band.reset_launch_counts()
@@ -3073,6 +3108,8 @@ def phase_shell3d(dev, smi, profile_dir):
     peak = torch.cuda.max_memory_allocated()
     launches = dict(cuda_band.LAUNCHES)
     ms = 1e3 * elapsed / (n_steps - 1)
+    # the state after n_steps, for halo_shell's comparison
+    state = (solver._u.clone(), solver._p.clone())
     busy = solver_busy(solver, ts, ms)
     deviation, n_eq = shell_deviation(solver)
     res = residual_records(solver)
@@ -3104,7 +3141,7 @@ def phase_shell3d(dev, smi, profile_dir):
         write_profile(lambda: advance(solver, ts), smi, profile_dir,
                       "profile_shell3d.txt",
                       f"spherical Couette flow, shell n = {n}, cell loop")
-    return launches
+    return launches, state
 
 
 class BackwardFacingStep(StationaryProblem):
@@ -3378,7 +3415,466 @@ def phase_mesh3d_parity(dev, smi, bfs_card):
     return launches
 
 
-GROUPS = ("kernels", "structured", "solver", "problems", "newton", "mesh3d")
+# the multidevice group: shards of one card (device_mesh(n) puts shard i
+# on cuda:(i % device_count): every shard on cuda:0 on one card); the
+# shell and its steps are shell3d's, the spectral case structured2d's, the
+# stationary cavity newton_cavity's at 64^2 (its one-device solve at 128^2
+# alone took 155-199 s on an H100 at 700 W), the parity cases small and f64
+MULTIDEVICE = {"shards": 4, "shell_tol": 1e-3, "spectral_n": 128,
+               "spectral_steps": 200, "spectral_tol": 1e-5,
+               "stationary_n": 64, "stationary_re": 100.0,
+               "stationary_tol": 1e-10, "parity_box_n": 6,
+               "parity_shell_n": 6, "parity_steps": 5,
+               "parity_cg_iters": (20, 60, 10), "parity_spectral": (16, 8),
+               "parity_cavity_n": 16, "parity_tol": 1e-12}
+
+
+class OpCounter(TorchDispatchMode):
+    """Counts the aten ops dispatched while active, and among them the
+    reads of a device scalar (``item()``, ``float()``): each one a host
+    synchronisation."""
+
+    def __init__(self):
+        super().__init__()
+        self.ops = self.reads = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.ops += 1
+        if func is torch.ops.aten._local_scalar_dense.default:
+            self.reads += 1
+        return func(*args, **(kwargs or {}))
+
+
+def shard_mesh(dev, n=None):
+    """``device_mesh(n)`` over the cards (the CPU's n shards for a CPU
+    ``dev``)."""
+    n = MULTIDEVICE["shards"] if n is None else n
+    return device_mesh(n) if dev.type == "cuda" else device_mesh(n,
+                                                                 device=dev)
+
+
+def mesh_info(mesh):
+    """What every multidevice line prints about its mesh."""
+    return {"shards": len(mesh),
+            "physical_devices": [str(d) for d in mesh.physical_devices],
+            "device_names": [torch.cuda.get_device_name(d)
+                             if d.type == "cuda" else str(d)
+                             for d in mesh.physical_devices]}
+
+
+def state_diff(solver, ref):
+    """Largest |u - u_ref| and |p - p_ref| relative to max |.| of the
+    reference."""
+    return {"u": rel_err(solver._u, ref[0]), "p": rel_err(solver._p, ref[1])}
+
+
+def worst(errs):
+    """The largest of ``errs``, or inf if any is not finite."""
+    errs = list(errs)
+    return max(errs) if all(math.isfinite(e) for e in errs) else math.inf
+
+
+def phase_halo_shell(dev, smi, reference):
+    """shell3d's case through ProjectionSolver(device_mesh=...): the
+    domain-decomposed halo step on the shell's full size, held to
+    shell3d's u_phi guard and to the one-device cell-loop state after the
+    same steps (``reference``: shell3d's (u, p), or None to run it)."""
+    n, n_steps = MESH3D["shell_n"], MESH3D["shell_steps"]
+    mesh = shard_mesh(dev)
+    cuda_band.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    solver, ts = make_shell(n, dev, torch.float32, MESH3D["shell_dt"],
+                            device_mesh=mesh)
+    t1 = time.perf_counter()
+    advance(solver, ts)
+    torch.cuda.synchronize()
+    t_first = time.perf_counter() - t1
+    if solver._step_kind != "halo":
+        raise AssertionError(f"halo_shell: step_kind {solver._step_kind!r}, "
+                             "expected 'halo'")
+    hops = solver._hops
+    bytes0 = hops.halo_bytes
+    t2 = time.perf_counter()
+    advance(solver, ts, n_steps - 1)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t2
+    peak = torch.cuda.max_memory_allocated()
+    halo_bytes = (hops.halo_bytes - bytes0) / (n_steps - 1)
+    ms = 1e3 * elapsed / (n_steps - 1)
+    if reference is None:
+        one, one_ts = make_shell(n, dev, torch.float32, MESH3D["shell_dt"])
+        advance(one, one_ts, n_steps)
+        reference = (one._u, one._p)
+        del one, one_ts
+    diff = state_diff(solver, reference)
+    res = residual_records(solver)
+    # one more step under an op counter: torch.profiler took 41-58 s to
+    # trace one step of this path (~34,000 device ops) beside an H100
+    counter = OpCounter()
+    with counter:
+        advance(solver, ts)
+    torch.cuda.synchronize()
+    deviation, n_eq = shell_deviation(solver)
+    launches = dict(cuda_band.LAUNCHES)
+    space = solver.space
+    emit({"phase": "halo_shell",
+          "config": f"shell3d's spherical Couette flow (spherical_shell(3, "
+                    f"{SHELL_RADII}, {n}) f32, dt {MESH3D['shell_dt']}) "
+                    f"through ProjectionSolver(device_mesh=device_mesh("
+                    f"{len(mesh)}))",
+          **mesh_info(mesh), "step_kind": solver._step_kind,
+          "n_dofs": space.n_dofs, "steps": n_steps, "ms_per_step": ms,
+          "dof_steps_per_s": (n_steps - 1) * space.n_dofs / elapsed,
+          "halo_report": hops.halo_report(),
+          "halo_bytes_per_step": halo_bytes,
+          "aten_ops_per_step": counter.ops,
+          "host_syncs_per_step": counter.reads,
+          "peak_device_bytes": peak, "residuals_last": res[-1].tolist(),
+          "u_phi_deviation_vs_stokes": deviation, "guard":
+              MESH3D["shell_guard"], "equatorial_nodes": n_eq,
+          "vs_one_device_cell_loop": diff,
+          "vs_one_device_tol": MULTIDEVICE["shell_tol"],
+          "t_end": ts.current_time, "launches": launches,
+          "setup_seconds": dict(setup_seconds(solver),
+                                through_initial_conditions=t1 - t0,
+                                first_step=t_first),
+          "seconds": time.perf_counter() - t0, "nvidia_smi": smi})
+    if not np.isfinite(res).all() or \
+            not deviation <= MESH3D["shell_guard"]:
+        raise AssertionError(f"halo_shell: u_phi deviation {deviation} > "
+                             f"{MESH3D['shell_guard']} or non-finite "
+                             "residuals")
+    if not worst(diff.values()) <= MULTIDEVICE["shell_tol"]:
+        raise AssertionError(f"halo_shell: {diff} from the one-device cell "
+                             f"loop > {MULTIDEVICE['shell_tol']}")
+    return launches
+
+
+def phase_spectral_sharded(dev, smi):
+    """Taylor-Green 128^2 (structured2d's case) through
+    ProjectionSolver(device_mesh=...) on the slab-sharded spectral step,
+    beside the unsharded solver in the same run."""
+    n, n_steps = MULTIDEVICE["spectral_n"], MULTIDEVICE["spectral_steps"]
+    t_start = time.perf_counter()
+    mesh = shard_mesh(dev)
+    cuda_band.reset_launch_counts()
+    runs = {}
+    for name, kw in (("sharded", {"device_mesh": mesh}), ("one_device", {})):
+        torch.cuda.reset_peak_memory_stats()
+        solver, ts = make_solver("periodic", n, dev, torch.float32, **kw)
+        elapsed, _ = timed_steps(solver, ts, n_steps)
+        u, _ = solver.space.split(solver.solution)
+        expected = math.exp(-2.0 * (1.0 / RE) * (2.0 * math.pi) ** 2
+                            * ts.current_time)
+        runs[name] = {"solver": solver,
+                      "step_kind": solver._step_kind,
+                      "ms_per_step": 1e3 * elapsed / n_steps,
+                      "dof_steps_per_s": n_steps * solver.space.n_dofs
+                      / elapsed,
+                      "amp_rel_err": abs(float(u.abs().max()) - expected)
+                      / expected,
+                      "finite": bool(torch.isfinite(solver.solution).all()),
+                      "peak_device_bytes": torch.cuda.max_memory_allocated()}
+    launches = dict(cuda_band.LAUNCHES)
+    sharded = runs["sharded"].pop("solver")
+    one = runs["one_device"].pop("solver")
+    diff = state_diff(sharded, (one._u, one._p))
+    slabs = len(sharded._spectral_state)
+    emit({"phase": "spectral_sharded",
+          "config": f"taylor-green {n}^2 f32, Re {RE:g}, dt {DT:g}, through "
+                    f"ProjectionSolver(device_mesh=device_mesh({len(mesh)}))"
+                    ", the slab-sharded spectral step, beside the unsharded "
+                    "solver",
+          **mesh_info(mesh), "slabs": slabs, "steps_timed": n_steps,
+          "runs": runs, "vs_unsharded": diff,
+          "vs_unsharded_tol": MULTIDEVICE["spectral_tol"],
+          "launches": launches, "seconds": time.perf_counter() - t_start,
+          "nvidia_smi": smi})
+    bad = [runs["sharded"]["step_kind"] != "spectral", slabs != len(mesh),
+           not runs["sharded"]["finite"],
+           not runs["sharded"]["amp_rel_err"] < 0.05,
+           not worst(diff.values()) <= MULTIDEVICE["spectral_tol"]]
+    if any(bad):
+        raise AssertionError(f"spectral_sharded guards failed: {bad}")
+    return launches
+
+
+def phase_stationary_sharded(dev, smi):
+    """newton_cavity's problem at 64^2 through StationarySolver(
+    device_mesh=...): the cell-sharded residual and Jacobian inside
+    PCD-FGMRES (the default linear mode with a mesh), f64, beside the
+    one-device solve in the same run."""
+    from navierstokes_tpu_torch.parallel.sharded_mixed import \
+        ShardedMixedOperator
+
+    n, re = MULTIDEVICE["stationary_n"], MULTIDEVICE["stationary_re"]
+    mesh = shard_mesh(dev)
+    cuda_band.reset_launch_counts()
+    out, solvers = {}, {}
+    # "pcd" is the card's default mode with or without a mesh; named here
+    # so that both runs take it on any device
+    for name, opts in (("sharded", {"device_mesh": mesh,
+                                    "linear_solver": "pcd"}),
+                       ("one_device", {"linear_solver": "pcd"})):
+        with tempfile.TemporaryDirectory() as tmp:
+            problem = NewtonCavity(tmp, n, re, device=dev,
+                                   dtype=torch.float64,
+                                   solver_options=opts)
+            problem._write_output = False
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()):
+                problem.solve_problem()
+            seconds = time.perf_counter() - t0
+        solver = problem._get_solver()
+        solves = [r for r in solver.monitor.records
+                  if r["kind"] == "nonlinear_solve"]
+        lin = [r["iterations"] for r in solver.monitor.records
+               if r["kind"] == "linear_solve"]
+        out[name] = {"seconds": seconds, "nonlinear_solves": len(solves),
+                     "linear_mode": solver._resolved_linear_mode(),
+                     "picard_iterations": solves[0]["picard_iterations"],
+                     "newton_iterations": solves[0]["newton_iterations"],
+                     "residual": solves[-1]["residual"],
+                     "fgmres_matvecs_per_linear_solve": lin}
+        solvers[name] = solver
+    launches = dict(cuda_band.LAUNCHES)
+    sharded = solvers["sharded"]
+    diff = rel_err(sharded.solution, solvers["one_device"].solution)
+    emit({"phase": "stationary_sharded",
+          "config": f"lid-driven cavity {n}^2 Re {re:g} f64 as a "
+                    "StationaryProblem (newton_cavity's problem at 64^2) "
+                    "with solver_options device_mesh=device_mesh("
+                    f"{len(mesh)}), beside the one-device solve",
+          **mesh_info(mesh), "dofs": sharded.space.n_dofs, "runs": out,
+          "vs_one_device": diff,
+          "vs_one_device_tol": MULTIDEVICE["stationary_tol"],
+          "launches": launches, "nvidia_smi": smi})
+    bad = [not isinstance(sharded._operator, ShardedMixedOperator),
+           out["sharded"]["linear_mode"] != "pcd",
+           # StationaryProblem falls back to a Reynolds continuation when
+           # its first solve raises: the first solve must converge
+           out["sharded"]["nonlinear_solves"] != 1,
+           not out["sharded"]["residual"] <= 1e-10,
+           not diff <= MULTIDEVICE["stationary_tol"]]
+    if any(bad):
+        raise AssertionError(f"stationary_sharded guards failed: {bad}")
+    return launches
+
+
+def dirichlet_masks(space, markers, bcs):
+    """Full-length velocity mask and values, and the pressure mask (None
+    for a mean-value pressure), of a case's boundary conditions."""
+    from navierstokes_tpu_torch.fem.dirichlet import compile_dirichlet_bcs
+
+    vel = [b for b in bcs if not isinstance(b[0], PressureBCType)]
+    pres = [b for b in bcs if isinstance(b[0], PressureBCType)
+            and b[0] is not PressureBCType.mean_value]
+    vbc, _ = compile_dirichlet_bcs(space, markers, vel, [])
+    vmask = np.zeros(space.n_velocity_dofs, bool)
+    vmask[np.asarray(vbc.dofs, np.int64)] = True
+    vvals = np.zeros(space.n_velocity_dofs)
+    vvals[np.asarray(vbc.dofs, np.int64)] = np.asarray(vbc.values(0.0))
+    pmask = None
+    if pres:
+        pbc, _ = compile_dirichlet_bcs(space, markers, [], pres)
+        pmask = np.zeros(space.n_pnodes, bool)
+        pmask[np.asarray(pbc.dofs, np.int64) - space.pressure_offset] = True
+    return (vmask, vvals), pmask
+
+
+def halo_steps(case, mesh, n_steps):
+    """``n_steps`` halo steps from rest of a (space, masks, visc, dt) case
+    over ``mesh`` in f64, fixed iterations; (u, p) in the space layout."""
+    space, (vel_bc, pmask), visc, dt = case
+    ops = HaloCellOperator(space, mesh, dtype=torch.float64)
+    step = build_halo_projection_step(
+        ops, visc=visc, dt=dt, cg_iters=MULTIDEVICE["parity_cg_iters"],
+        vel_bc=vel_bc, pres_bc_mask=pmask)
+    dev = mesh.devices[0]
+    u = ops.pad_velocity(torch.zeros(space.n_velocity_dofs,
+                                     dtype=torch.float64, device=dev))
+    p = ops.pad_pressure(torch.zeros(space.n_pnodes, dtype=torch.float64,
+                                     device=dev))
+    phi, u_old = 0.0 * p, u
+    for i in range(n_steps):
+        u_new, p, phi = step(u, u_old, p, phi, ALPHAS[min(i, 1)],
+                             ETAS[min(i, 1)])
+        u_old, u = u, u_new
+    return ops.unpad_velocity(u), ops.unpad_pressure(p)
+
+
+def parity_row(card, card_again, cpu, one):
+    """card vs CPU and 4 shards vs 1 (relative, max-norm; the worst over
+    the fields, inf if any is not finite) of (u, p) pairs, and whether a
+    second card run repeated the first bit for bit."""
+    return {"card_vs_cpu": worst(rel_err(a, b) for a, b in zip(card, cpu)),
+            "shards_vs_one": worst(rel_err(a, b) for a, b in zip(card, one)),
+            "rerun_bitwise": all(torch.equal(a, b)
+                                 for a, b in zip(card, card_again))}
+
+
+def checkpoint_crossing(dev, mesh, directory):
+    """The channel on ``mesh`` (halo) and on one device (banded), f64:
+    sharded -> checkpoint -> one device -> checkpoint -> sharded, each
+    reader holding the writer's state bit for bit; and a sharded run
+    resumed from the first checkpoint equal to the unbroken run."""
+    def state(s):
+        return (s._u, s._u_old, s._p, s._phi)
+
+    def fresh(**kw):
+        s, ts = make_solver("channel", SOLVER["channel"], dev,
+                            torch.float64, **kw)
+        s._setup_problem()
+        return s, ts
+
+    def same(a, b):
+        return all(torch.equal(x, y) for x, y in zip(state(a), state(b)))
+
+    a, ats = make_solver("channel", SOLVER["channel"], dev, torch.float64,
+                         device_mesh=mesh)
+    advance(a, ats, 3)
+    first = os.path.join(directory, "sharded.npz")
+    save_checkpoint(first, a, ats)
+    one, one_ts = fresh()
+    load_checkpoint(first, one, one_ts)
+    to_one = same(one, a)
+    advance(one, one_ts, 2)
+    second = os.path.join(directory, "one.npz")
+    save_checkpoint(second, one, one_ts)
+    b, bts = fresh(device_mesh=mesh)
+    load_checkpoint(second, b, bts)
+    to_sharded = same(b, one)
+    c, cts = fresh(device_mesh=mesh)
+    load_checkpoint(first, c, cts)
+    advance(a, ats, 2)
+    advance(c, cts, 2)
+    kinds = [a._step_kind, one._step_kind, b._step_kind]
+    return {"step_kinds": kinds, "sharded_to_one_bitwise": to_one,
+            "one_to_sharded_bitwise": to_sharded,
+            "resumed_equals_unbroken_bitwise": same(a, c)}, \
+        kinds == ["halo", "fast", "halo"]
+
+
+def phase_multidevice_parity(dev, smi):
+    """f64: each multi-device path on the card against the CPU and over 4
+    shards against 1, a second card run bit for bit, and a checkpoint
+    crossing between 4 shards and one device."""
+    from navierstokes_tpu_torch.assembly.operators import MixedOperator
+    from navierstokes_tpu_torch.parallel.sharded_mixed import \
+        ShardedMixedOperator
+    from navierstokes_tpu_torch.structured.spectral import \
+        shard_spectral_step
+
+    steps = MULTIDEVICE["parity_steps"]
+    t_start = time.perf_counter()
+    mesh, cpu_mesh = shard_mesh(dev), shard_mesh(torch.device("cpu"))
+    one_mesh = shard_mesh(dev, 1)
+    cuda_band.reset_launch_counts()
+    rows = {}
+    # the halo step: a 3D box (the lid-driven cavity) and the shell
+    for name, (mesh_bcs, visc, dt) in {
+            "halo_box3d": (lid_driven_cavity_setup(
+                MULTIDEVICE["parity_box_n"], dim=3), 0.01, 0.02),
+            "halo_shell": (spherical_couette_setup(
+                MULTIDEVICE["parity_shell_n"], SHELL_RADII),
+                SHELL_RADII[0] ** 2 / SHELL_RE, 0.05)}.items():
+        t0 = time.perf_counter()
+        m, markers, bcs = mesh_bcs
+        space = TaylorHoodSpace(m)
+        case = (space, dirichlet_masks(space, markers, bcs), visc, dt)
+        rows[name] = parity_row(halo_steps(case, mesh, steps),
+                                halo_steps(case, mesh, steps),
+                                halo_steps(case, cpu_mesh, steps),
+                                halo_steps(case, one_mesh, steps))
+        rows[name]["seconds"] = time.perf_counter() - t0
+    # the slab-sharded spectral step, 2D and 3D
+    for dim, n in zip((2, 3), MULTIDEVICE["parity_spectral"]):
+        t0 = time.perf_counter()
+        space = TaylorHoodSpace(hyper_cube(dim, n)[0], periodic=[
+            axis_periodic(a) for a in range(dim)])
+        sg = PeriodicStructuredTH(space)
+        u0 = (space.interpolate_velocity(lambda x: np.stack(
+            [np.cos(2 * math.pi * x[:, 0]) * np.sin(2 * math.pi * x[:, 1]),
+             -np.sin(2 * math.pi * x[:, 0])
+             * np.cos(2 * math.pi * x[:, 1])], axis=1)).reshape(-1)
+              if dim == 2 else vortex3d(space))
+        p0 = np.zeros(space.n_pnodes)
+
+        def run(where, on_mesh):
+            step, init, read = build_spectral_projection_step(
+                sg, visc=1.0 / RE, dt=DT, dtype=torch.float64,
+                device=where)
+            state = init(u0, u0, p0)
+            if on_mesh is None:
+                state = spectral_steps(step, state, steps)
+                return tuple(torch.as_tensor(a) for a in read(state))
+            sharded, shard_state = shard_spectral_step(step, sg, on_mesh)
+            state = spectral_steps(sharded, shard_state(state), steps)
+            return tuple(torch.as_tensor(a)
+                         for a in read(sharded.gather_state(state)))
+
+        rows[f"spectral_{n}^{dim}"] = parity_row(
+            run(dev, mesh), run(dev, mesh), run("cpu", cpu_mesh),
+            run(dev, None))
+        rows[f"spectral_{n}^{dim}"]["seconds"] = time.perf_counter() - t0
+    # the sharded Newton system's matvec (the Jacobian action)
+    n = MULTIDEVICE["parity_cavity_n"]
+    m, markers, bcs = lid_driven_cavity_setup(n)
+    space = TaylorHoodSpace(m)
+    (vmask, _), _ = dirichlet_masks(space, markers, bcs)
+    rng = np.random.default_rng(11)
+    x = rng.standard_normal(space.n_dofs)
+    v = rng.standard_normal(space.n_dofs)
+    scalars = {"cv": 1.0 / 100.0, "cc": 1.0, "cp": 1.0, "accel0": 0.0}
+
+    def jvp(where, on_mesh):
+        op = MixedOperator(space, device=where, dtype=torch.float64)
+        op.set_bc_dofs(np.nonzero(vmask)[0])
+        if on_mesh is not None:
+            op = ShardedMixedOperator(op, on_mesh)
+        _, f = op.linearize_at(torch.tensor(x, device=where), scalars)
+        return (f(torch.tensor(v, device=where)),)
+
+    rows["newton_jvp"] = parity_row(jvp(dev, mesh), jvp(dev, mesh),
+                                    jvp("cpu", cpu_mesh), jvp(dev, None))
+    launches = dict(cuda_band.LAUNCHES)
+    # the crossing's one-device leg is the channel's banded step
+    # (solver_parity's case), which applies its bands; counted apart
+    cuda_band.reset_launch_counts()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt, kinds_ok = checkpoint_crossing(dev, mesh, tmp)
+    ckpt["one_device_leg_launches"] = dict(cuda_band.LAUNCHES)
+    ckpt["seconds"] = time.perf_counter() - t0
+    emit({"phase": "multidevice_parity",
+          "config": f"f64, {steps} steps: the halo step on the 3D cavity "
+                    f"{MULTIDEVICE['parity_box_n']}^3 and the shell n = "
+                    f"{MULTIDEVICE['parity_shell_n']} (cg_iters "
+                    f"{MULTIDEVICE['parity_cg_iters']}), the sharded "
+                    f"spectral step at {MULTIDEVICE['parity_spectral'][0]}^2"
+                    f" and {MULTIDEVICE['parity_spectral'][1]}^3, the "
+                    f"Newton matvec on the cavity {n}^2; card vs CPU and "
+                    f"{len(mesh)} shards vs 1; the channel "
+                    f"{SOLVER['channel']} checkpoint crossing",
+          **mesh_info(mesh), "rows": rows, "tol": MULTIDEVICE["parity_tol"],
+          "checkpoint": ckpt, "launches": launches,
+          "seconds": time.perf_counter() - t_start, "nvidia_smi": smi})
+    tol = MULTIDEVICE["parity_tol"]
+    bad = [k for k, r in rows.items()
+           if not (r["card_vs_cpu"] <= tol and r["shards_vs_one"] <= tol
+                   and r["rerun_bitwise"])]
+    if not kinds_ok or not all(ckpt[k] for k in (
+            "sharded_to_one_bitwise", "one_to_sharded_bitwise",
+            "resumed_equals_unbroken_bitwise")):
+        bad.append("checkpoint")
+    if bad:
+        raise AssertionError(f"multidevice_parity failed: {bad}")
+    return launches
+
+
+GROUPS = ("kernels", "structured", "solver", "problems", "newton", "mesh3d",
+          "multidevice")
 
 
 def main():
@@ -3442,7 +3938,7 @@ def main():
                                                        args.profile)
         by_path["bdf_dfg"] = phase_bdf_dfg(dev, smi, args.profile)
         by_path["newton_parity"] = phase_newton_parity(dev)
-    mesh3d_t = None
+    mesh3d_t, shell_state = None, None
     if "mesh3d" in groups:
         t_group = time.perf_counter()
         solver3d, ts3d, by_path["cavity3d"] = phase_cavity3d(dev, smi,
@@ -3452,11 +3948,21 @@ def main():
         mesh3d_t = {"solves": solves3d, "applies": applies3d}
         del solver3d, ts3d
         by_path["duct3d"] = phase_duct3d(dev, smi)
-        by_path["shell3d"] = phase_shell3d(dev, smi, args.profile)
+        by_path["shell3d"], shell_state = phase_shell3d(dev, smi,
+                                                         args.profile)
         by_path["bfs"], bfs_card = phase_bfs(dev, smi)
         by_path["blasius"] = phase_blasius(dev, smi)
         by_path["mesh3d_parity"] = phase_mesh3d_parity(dev, smi, bfs_card)
         emit({"phase": "mesh3d", "seconds": time.perf_counter() - t_group})
+    if "multidevice" in groups:
+        t_group = time.perf_counter()
+        by_path["halo_shell"] = phase_halo_shell(dev, smi, shell_state)
+        del shell_state
+        by_path["spectral_sharded"] = phase_spectral_sharded(dev, smi)
+        by_path["stationary_sharded"] = phase_stationary_sharded(dev, smi)
+        by_path["multidevice_parity"] = phase_multidevice_parity(dev, smi)
+        emit({"phase": "multidevice",
+              "seconds": time.perf_counter() - t_group})
 
     emit({"phase": "total", "seconds": time.perf_counter() - t_start,
           "groups": sorted(groups)})
@@ -3471,8 +3977,14 @@ def main():
         # the mesh3d group: the banded paths (cavity3d, its kernels twin,
         # duct3d) apply the bands; shell3d takes the cell loop, bfs and
         # blasius the stationary solver, which apply no band operator
+        # the multidevice group: the halo and cell-sharded operators, the
+        # sharded spectral step and the sharded Newton stack apply none
+        # (multidevice_parity prints the launches of its checkpoint
+        # crossing's one-device banded leg apart)
         newton = ("newton_dfg", "newton_cavity", "bdf_dfg", "newton_parity",
-                  "shell3d", "bfs", "blasius")
+                  "shell3d", "bfs", "blasius", "halo_shell",
+                  "spectral_sharded", "stationary_sharded",
+                  "multidevice_parity")
         on_path = {"circulant_apply": [p for p in by_path
                                        if p != "dfg" and p not in newton],
                    "circulant_pcg": ["main", "solver_cavity_kernels",

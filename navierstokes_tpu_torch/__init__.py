@@ -8,7 +8,9 @@ time-stepping bookkeeping, the product solver API for transient flow
 (``ProjectionSolver`` with boundary conditions, coefficients, initial
 conditions and checkpoints), the application layer, and the Newton and
 monolithic stack (stationary Picard->Newton, monolithic BDF, theta, IMEX
-and IPCS solvers with direct and PCD-FGMRES linear solves):
+and IPCS solvers with direct and PCD-FGMRES linear solves), and the
+multi-device layer (the halo projection step, the slab-sharded spectral
+step, the cell-sharded Newton stack) over shards of one card or several:
 
     mesh/        ``hyper_cube`` / ``hyper_rectangle`` (2D and 3D), the
                  mesh topology and its facet geometry
@@ -39,6 +41,9 @@ and IPCS solvers with direct and PCD-FGMRES linear solves):
                  (``spectral``)
     timestepping/  ``DiscreteTime`` and the BDF, theta and IMEX coefficient
                  generators (pure Python)
+    parallel/    the multi-device layer in one process: a mesh of shard
+                 devices and its collectives, cell-sharded and
+                 halo-exchange operators, the sharded Newton operator
     setups.py    the benchmark's initial states (2D Taylor-Green vortex,
                  3D shear wave) and the lid-driven cavity and channel
 

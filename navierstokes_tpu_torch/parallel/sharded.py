@@ -1,4 +1,4 @@
-"""Cell-loop matrix-free operators (``navierstokes_tpu/parallel/sharded.py``).
+"""Cell-sharded matrix-free operators (``navierstokes_tpu/parallel/sharded.py``).
 
 The linear operators (mass, stiffness, pressure-gradient coupling) are
 per-cell element matrices precomputed once on the host; each matvec is a
@@ -8,11 +8,17 @@ accumulation through a precomputed transpose-gather table (node -> the
 fixed-order sum, with no atomics, so a rerun on the card repeats itself
 bit for bit.  Only the nonlinear convection keeps the quadrature loop.
 
-One device only.  The JAX class shards the cells over a device mesh and
-adds the shards' partial results with one ``psum`` per apply; on one
-device that sum has a single term, so here each apply is the plain sum
-over all cells.  ``device_mesh`` with more than one device, the sharded
-form, is ROADMAP item 15 and raises ``NotImplementedError``.
+Cell sharding with replicated vectors, as in the JAX class: the cells,
+in Morton order and padded with zero-weight cells to a multiple of the
+shard count, are split into equal chunks, one per shard of a
+:class:`~navierstokes_tpu_torch.parallel.comm.DeviceMesh`; each shard
+holds its chunk's element matrices and its own ELL tables (one padded
+width K for all shards).  An apply sends the replicated input to every
+shard, each shard assembles its cells' contributions into a full-length
+partial result, and one :func:`~navierstokes_tpu_torch.parallel.comm.psum`
+adds the partials in shard order on shard 0's device, where the result
+lives.  On one shard the sum has one term and the apply is the plain sum
+over all cells.
 """
 
 from __future__ import annotations
@@ -21,22 +27,9 @@ import numpy as np
 import torch
 
 from navierstokes_tpu_torch import config
+from navierstokes_tpu_torch.parallel.comm import (  # noqa: F401
+    DeviceMesh, as_mesh, device_mesh, psum)
 from navierstokes_tpu_torch.utils.segment import padded_row_sum, take_rows
-
-
-def device_mesh(n_devices=None, axis="shard", device=None):
-    """The devices the cell-loop operators run on: one.
-
-    ``n_devices`` of None or 1 gives ``[device]`` (default: the card; the
-    CPU only when asked for).  More than one device is the multi-device
-    layer, which is not ported yet.
-    """
-    if n_devices is not None and int(n_devices) > 1:
-        raise NotImplementedError(
-            "parallel.sharded.device_mesh over more than one device is not "
-            "ported yet (ROADMAP item 15: the multi-device layer on "
-            "torch.distributed)")
-    return [config.require_device(device)]
 
 
 def _numpy_scatter_transpose(flat_nodes: np.ndarray, n_nodes: int,
@@ -92,27 +85,75 @@ def build_scatter_transpose_range(cell_nodes: np.ndarray, lo: int,
     return table, K
 
 
-class ShardedCellOperator:
-    """Matrix-free cell-loop operators of a Taylor-Hood space, on one
-    device.
+class _CellShard:
+    """One shard's cells: element matrices, geometry and ELL tables on the
+    shard's device."""
 
-    Vectors are the space's flat layouts: velocity ``(n_unodes * dim,)``
-    node-major interleaved, pressure ``(n_pnodes,)``.  ``mesh`` is None or
-    a one-device list from :func:`device_mesh` (``axis`` names the JAX
-    class's mesh axis and is unused on one device); ``device`` / ``dtype``
-    default to the card and ``config.default_dtype``.
+    def __init__(self, device, dim, arrays, tables):
+        self.device = device
+        self.dim = dim
+        for name, value in arrays.items():
+            setattr(self, name, value)
+        self.u_table_v, self.u_table_e, self.p_table = tables
+        nc, n2, n1 = self.G_c.shape[0], self.G_c.shape[1], self.G_c.shape[3]
+        # the coupling as (cells, n2*dim, n1) for G p and its transpose
+        # for D u, both one bmm
+        self._G_flat = self.G_c.reshape(nc, n2 * dim, n1)
+        self._D_flat = self._G_flat.transpose(1, 2).contiguous()
+        self._helm_cache = None
+
+    def cells_u(self, uflat):
+        """(n_unodes * dim,) -> (cells, n2, dim) cell values."""
+        return take_rows(uflat.to(self.device, non_blocking=True)
+                         .reshape(-1, self.dim), self.cell_unodes)
+
+    def cells_p(self, p):
+        return p.to(self.device, non_blocking=True)[self.cell_pnodes]
+
+    def scatter_u(self, r_c):
+        """(cells, n2, dim) cell contributions -> (n_unodes * dim,)."""
+        flat = r_c.reshape(-1, self.dim)
+        out_v = padded_row_sum(self.u_table_v, flat)
+        out_e = padded_row_sum(self.u_table_e, flat)
+        return torch.cat([out_v, out_e], dim=0).reshape(-1)
+
+    def scatter_p(self, r_c):
+        return padded_row_sum(self.p_table, r_c.reshape(-1))
+
+    def helmholtz_cells(self, visc, accel0):
+        """accel0 M_c + visc K_c, kept for the last accel0 (a step's
+        velocity solve applies it once per CG iteration)."""
+        key = (float(visc), float(accel0))
+        if self._helm_cache is None or self._helm_cache[0] != key:
+            self._helm_cache = (key, accel0 * self.M_c + visc * self.K_c)
+        return self._helm_cache[1]
+
+
+class ShardedCellOperator:
+    """Matrix-free cell-loop operators of a Taylor-Hood space over the
+    shards of a device mesh.
+
+    Vectors are the space's flat layouts, replicated: velocity
+    ``(n_unodes * dim,)`` node-major interleaved, pressure ``(n_pnodes,)``,
+    on shard 0's device (``self.device``); every apply returns there.
+    ``mesh`` is None (one shard on ``device``), a
+    :class:`~navierstokes_tpu_torch.parallel.comm.DeviceMesh` or a plain
+    sequence of devices; ``axis`` names the mesh axis of a plain
+    sequence.  ``dtype`` defaults to ``config.default_dtype``.
     """
 
     def __init__(self, space, mesh=None, axis="shard", *, dtype=None,
                  device=None):
-        if mesh is not None:
-            if len(mesh) != 1:
-                raise NotImplementedError(
-                    "ShardedCellOperator over more than one device is not "
-                    "ported yet (ROADMAP item 15)")
-            if device is None:
-                device = mesh[0]
-        self.device = device = config.require_device(device)
+        mesh = as_mesh(mesh, axis)
+        if mesh is None:
+            mesh = DeviceMesh([config.require_device(device)], axis)
+        elif device is not None and \
+                config.resolve_device(device) != mesh.devices[0]:
+            raise ValueError(f"device {device} is not the mesh's shard 0 "
+                             f"({mesh.devices[0]})")
+        self.mesh = mesh
+        self.n_dev = n_dev = len(mesh)
+        self.device = device = mesh.devices[0]
         self.dtype = dt = config.resolve_dtype(dtype, device)
         np_dt = config.numpy_dtype(dt)
         self.space = space
@@ -130,19 +171,17 @@ class ShardedCellOperator:
         Jinv = np.asarray(space.Jinv_q, dtype=np_dt)[cell_order]
         cu = np.asarray(space.cell_unodes)[cell_order]
         cp_ = np.asarray(space.cell_pnodes)[cell_order]
+        # padding to a multiple of the shard count: zero-weight copies of
+        # the first cell, whose element matrices vanish
+        n_pad = (-len(cu)) % n_dev
+        if n_pad:
+            W = np.concatenate([W, np.zeros((n_pad, W.shape[1]), W.dtype)])
+            Jinv = np.concatenate([Jinv, np.repeat(Jinv[:1], n_pad, 0)])
+            cu = np.concatenate([cu, np.repeat(cu[:1], n_pad, 0)])
+            cp_ = np.concatenate([cp_, np.repeat(cp_[:1], n_pad, 0)])
+        self.n_cells_padded = len(cu)
+        self.chunk = chunk = len(cu) // n_dev
         self._cu_host, self._cp_host = cu, cp_
-
-        def dev_f(a):
-            return torch.as_tensor(np.asarray(a, dtype=np_dt), device=device)
-
-        def dev_i(a):
-            return torch.as_tensor(np.asarray(a, dtype=np.int64),
-                                   device=device)
-
-        self.W = dev_f(W)
-        self.cell_unodes = dev_i(cu)
-        self.cell_pnodes = dev_i(cp_)
-        self.N2 = dev_f(space.N2)
 
         # element matrices, host-side once (cell-ordered)
         g2 = np.einsum("qia,cqae->cqie", np.asarray(space.G2), Jinv)
@@ -157,95 +196,105 @@ class ShardedCellOperator:
         self._elem_diags_host = (np.einsum("cii->ci", M_c),
                                  np.einsum("cii->ci", K_c),
                                  np.einsum("cjj->cj", KP_c))
-        nc, n2, n1 = G_c.shape[0], G_c.shape[1], G_c.shape[3]
-        self.M_c = dev_f(M_c)
-        self.K_c = dev_f(K_c)
-        self.G_c = dev_f(G_c)
-        self.KP_c = dev_f(KP_c)
-        # the coupling as (cells, n2*dim, n1) for G p and its transpose
-        # for D u, both one bmm
-        self._G_flat = self.G_c.reshape(nc, n2 * dim, n1)
-        self._D_flat = self._G_flat.transpose(1, 2).contiguous()
-        # physical shape gradients at the quadrature points, for the
-        # convection (the JAX class forms them inside every apply)
-        self.g2 = dev_f(g2)
-        self._helm_cache = None
 
-        # the velocity scatter split by node class (vertex nodes in ranks
-        # [0, n_vtx), edge midpoints in [n_vtx, n_unodes)): their valences
-        # differ, so each class gets its own ELL width
+        # per-shard ELL tables over the shard's own cells, the velocity
+        # scatter split by node class (vertex nodes in ranks [0, n_vtx),
+        # edge midpoints in [n_vtx, n_unodes)): their valences differ, so
+        # each class gets its own width, common to all shards
         n_vtx = getattr(space, "n_vertex_unodes", space.n_unodes)
         self.n_vertex_unodes = n_vtx
-        self.u_table_v = dev_i(build_scatter_transpose_range(
-            cu, 0, n_vtx)[0])
-        self.u_table_e = dev_i(build_scatter_transpose_range(
-            cu, n_vtx, space.n_unodes)[0])
-        self.p_table = dev_i(build_scatter_transpose(cp_,
-                                                     space.n_pnodes)[0])
+        chunks_u = [cu[d * chunk:(d + 1) * chunk] for d in range(n_dev)]
+        chunks_p = [cp_[d * chunk:(d + 1) * chunk] for d in range(n_dev)]
 
-    # -- gather / scatter ---------------------------------------------------
-    def _cells_u(self, uflat):
-        """(n_unodes * dim,) -> (cells, n2, dim) cell values."""
-        return take_rows(uflat.reshape(-1, self.dim), self.cell_unodes)
+        def shard_tables(builder, chunks, *args):
+            K = max(builder(c, *args)[1] for c in chunks)
+            return [builder(c, *args, K)[0] for c in chunks]
 
-    def _scatter_u(self, r_c):
-        """(cells, n2, dim) cell contributions -> (n_unodes * dim,)."""
-        flat = r_c.reshape(-1, self.dim)
-        out_v = padded_row_sum(self.u_table_v, flat)
-        out_e = padded_row_sum(self.u_table_e, flat)
-        return torch.cat([out_v, out_e], dim=0).reshape(-1)
+        tables = zip(
+            shard_tables(build_scatter_transpose_range, chunks_u, 0, n_vtx),
+            shard_tables(build_scatter_transpose_range, chunks_u, n_vtx,
+                         space.n_unodes),
+            shard_tables(build_scatter_transpose, chunks_p, space.n_pnodes))
 
-    def _scatter_p(self, r_c):
-        return padded_row_sum(self.p_table, r_c.reshape(-1))
+        self.N2 = torch.as_tensor(np.asarray(space.N2, dtype=np_dt),
+                                  device=device)
+        self._shards = []
+        for d, tabs in enumerate(tables):
+            dev = mesh.devices[d]
+            cells = slice(d * chunk, (d + 1) * chunk)
+
+            def dev_f(a):
+                return torch.as_tensor(np.asarray(a[cells], dtype=np_dt),
+                                       device=dev)
+
+            arrays = dict(W=dev_f(W), M_c=dev_f(M_c), K_c=dev_f(K_c),
+                          G_c=dev_f(G_c), KP_c=dev_f(KP_c),
+                          # physical shape gradients at the quadrature
+                          # points, for the convection (the JAX class
+                          # forms them inside every apply)
+                          g2=dev_f(g2),
+                          N2=self.N2.to(dev),
+                          cell_unodes=torch.as_tensor(
+                              np.asarray(cu[cells], np.int64), device=dev),
+                          cell_pnodes=torch.as_tensor(
+                              np.asarray(cp_[cells], np.int64), device=dev))
+            self._shards.append(_CellShard(
+                dev, dim, arrays,
+                [torch.as_tensor(t.astype(np.int64), device=dev)
+                 for t in tabs]))
+
+    def _sum(self, local):
+        """``local(shard)`` on every shard, added in shard order on shard
+        0's device (one psum)."""
+        parts = [local(sh) for sh in self._shards]
+        if len(parts) == 1:
+            return parts[0]
+        return psum(parts, self.mesh)[0]
 
     # -- operator factories ---------------------------------------------------
     def make_velocity_mass(self):
         """u -> M u (P2 vector mass), flat in and out."""
         def mass(uflat):
-            return self._scatter_u(torch.bmm(self.M_c,
-                                             self._cells_u(uflat)))
+            return self._sum(lambda sh: sh.scatter_u(
+                torch.bmm(sh.M_c, sh.cells_u(uflat))))
 
         return mass
-
-    def _helmholtz_cells(self, visc, accel0):
-        """accel0 M_c + visc K_c, kept for the last accel0 (a step's
-        velocity solve applies it once per CG iteration)."""
-        key = (float(visc), float(accel0))
-        if self._helm_cache is None or self._helm_cache[0] != key:
-            self._helm_cache = (key, accel0 * self.M_c + visc * self.K_c)
-        return self._helm_cache[1]
 
     def make_velocity_helmholtz(self, visc):
         """(u, accel0) -> (accel0 M + visc K) u."""
         def helm(uflat, accel0):
-            A_c = self._helmholtz_cells(visc, accel0)
-            return self._scatter_u(torch.bmm(A_c, self._cells_u(uflat)))
+            return self._sum(lambda sh: sh.scatter_u(torch.bmm(
+                sh.helmholtz_cells(visc, accel0), sh.cells_u(uflat))))
 
         return helm
 
     def make_gradient(self):
         """p -> G p: velocity-space image of -int(p div w)."""
+        def local(sh, p):
+            r_c = torch.bmm(sh._G_flat, sh.cells_p(p).unsqueeze(-1))
+            return sh.scatter_u(r_c.reshape(-1, sh.G_c.shape[1], sh.dim))
+
         def grad(p):
-            p_c = p[self.cell_pnodes].unsqueeze(-1)
-            r_c = torch.bmm(self._G_flat, p_c)
-            return self._scatter_u(r_c.reshape(-1, self.G_c.shape[1],
-                                               self.dim))
+            return self._sum(lambda sh: local(sh, p))
 
         return grad
 
     def make_divergence(self):
         """u -> D u with D u = -int(div u) q tested against P1 (D = G^T)."""
+        def local(sh, uflat):
+            u_c = sh.cells_u(uflat).reshape(sh._D_flat.shape[0], -1, 1)
+            return sh.scatter_p(torch.bmm(sh._D_flat, u_c))
+
         def div(uflat):
-            u_c = self._cells_u(uflat).reshape(self._D_flat.shape[0], -1, 1)
-            return self._scatter_p(torch.bmm(self._D_flat, u_c))
+            return self._sum(lambda sh: local(sh, uflat))
 
         return div
 
     def make_pressure_stiffness(self):
         """p -> L p (P1 Laplacian)."""
         def stiff(p):
-            p_c = p[self.cell_pnodes].unsqueeze(-1)
-            return self._scatter_p(torch.bmm(self.KP_c, p_c))
+            return self._sum(lambda sh: sh.scatter_p(torch.bmm(
+                sh.KP_c, sh.cells_p(p).unsqueeze(-1))))
 
         return stiff
 
@@ -254,13 +303,16 @@ class ShardedCellOperator:
         assembly, by quadrature."""
         cc = float(cc)
 
-        def conv(uflat):
-            u_c = self._cells_u(uflat)
-            u_q = torch.einsum("qi,cid->cqd", self.N2, u_c)
-            grad_u = torch.einsum("cid,cqie->cqde", u_c, self.g2)
+        def local(sh, uflat):
+            u_c = sh.cells_u(uflat)
+            u_q = torch.einsum("qi,cid->cqd", sh.N2, u_c)
+            grad_u = torch.einsum("cid,cqie->cqde", u_c, sh.g2)
             adv = cc * torch.einsum("cqde,cqe->cqd", grad_u, u_q)
-            r_c = torch.einsum("cq,cqd,qi->cid", self.W, adv, self.N2)
-            return self._scatter_u(r_c)
+            r_c = torch.einsum("cq,cqd,qi->cid", sh.W, adv, sh.N2)
+            return sh.scatter_u(r_c)
+
+        def conv(uflat):
+            return self._sum(lambda sh: local(sh, uflat))
 
         return conv
 

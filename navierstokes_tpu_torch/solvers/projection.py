@@ -15,14 +15,16 @@ the same step functions as the benchmark scripts:
 * a mesh that no banded format holds (the engine raises
   ``StructureError``, recorded as ``fastop_fallback``) takes the cell-loop
   step (``solvers/fused_step.py`` over ``parallel/sharded.py``'s
-  element-matrix operators), with the same boundary data and monitoring.
+  element-matrix operators), with the same boundary data and monitoring;
+* with a ``device_mesh`` of more than one shard, the spectral step runs
+  slab-sharded (``structured/spectral.shard_spectral_step``) and every
+  other mesh takes the domain-decomposed halo step
+  (``solvers/halo_step.py`` over ``parallel/halo.py``), its state
+  partitioned over the shards.
 
 Scheme: semi-implicit incremental pressure correction with variable-step
 BDF weights alpha from ``BDFTimeStepping`` and matching extrapolation
 weights eta = (1 + omega, -omega).
-
-Not ported yet: the domain-decomposed halo step (``device_mesh`` with more
-than one device, ROADMAP item 15) raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -37,8 +39,12 @@ from navierstokes_tpu_torch.assembly.fastop import (FastTaylorHood,
 from navierstokes_tpu_torch.fem.bcs import PressureBCType
 from navierstokes_tpu_torch.fem.dirichlet import compile_dirichlet_bcs
 from navierstokes_tpu_torch.fem.spaces import _eval_field
+from navierstokes_tpu_torch.parallel.comm import as_mesh
+from navierstokes_tpu_torch.parallel.halo import HaloCellOperator
 from navierstokes_tpu_torch.parallel.sharded import (ShardedCellOperator,
                                                      device_mesh)
+from navierstokes_tpu_torch.solvers.halo_step import \
+    build_halo_projection_step
 from navierstokes_tpu_torch.solvers.fused_step import build_projection_step
 from navierstokes_tpu_torch.solvers.planar_step import \
     build_planar_projection_step
@@ -46,6 +52,7 @@ from navierstokes_tpu_torch.solvers.transient import InstationarySolverBase
 from navierstokes_tpu_torch.structured import (NotStructured,
                                                PeriodicStructuredTH,
                                                build_spectral_projection_step)
+from navierstokes_tpu_torch.structured.spectral import shard_spectral_step
 from navierstokes_tpu_torch.timestepping import BDFTimeStepping
 from navierstokes_tpu_torch.utils.monitor import timed_region
 
@@ -59,8 +66,13 @@ class ProjectionSolver(InstationarySolverBase):
                  prefer_spectral=True, device_mesh=None,
                  poisson_precond="amg", rotational=False, *,
                  device=None, dtype=None):
-        """``device_mesh``: a sequence of devices for the domain-decomposed
-        multi-device step; more than one device is not ported yet.
+        """``device_mesh``: a ``parallel.comm.DeviceMesh`` (or a plain
+        sequence of devices) with more than one shard routes the step
+        through the multi-device layer: the slab-sharded spectral step on
+        a periodic enclosed mesh, the domain-decomposed halo step
+        (``parallel/halo.py`` + ``solvers/halo_step.py``) otherwise.  The
+        canonical state then lives on shard 0's device, which ``device``
+        must be if given.
 
         ``poisson_precond``: "amg" (default) preconditions the banded
         step's pressure Poisson with a smoothed-aggregation V-cycle --
@@ -76,10 +88,16 @@ class ProjectionSolver(InstationarySolverBase):
         lives (default: the card, ``config.default_dtype``; the CPU only
         with ``device="cpu"``)."""
         assert isinstance(time_stepping, BDFTimeStepping)
+        device_mesh = as_mesh(device_mesh)
         if device_mesh is not None and len(device_mesh) > 1:
-            raise NotImplementedError(
-                "the domain-decomposed step over several devices is not "
-                "ported yet (ROADMAP item 15)")
+            if device is None:
+                device = device_mesh.devices[0]
+            elif torch.device(device) != device_mesh.devices[0]:
+                raise ValueError(f"device {device} is not the mesh's shard "
+                                 f"0 ({device_mesh.devices[0]})")
+        else:
+            device_mesh = None
+        self._device_mesh = device_mesh
         super().__init__(mesh, boundary_markers, form_convective_term,
                          time_stepping, tol, max_iter or 50,
                          form_viscous_term, linear_solver,
@@ -139,11 +157,11 @@ class ProjectionSolver(InstationarySolverBase):
                     "spectral path assumes convective_term == 1")
             else:
                 try:
-                    sgrid = PeriodicStructuredTH(self._space)
+                    self._setup_spectral_step(
+                        PeriodicStructuredTH(self._space))
                 except NotStructured as exc:
                     refusal = exc
                 else:
-                    self._setup_spectral_step(sgrid)
                     return
             msg = (f"spectral fast path unavailable "
                    f"({type(refusal).__name__}: {refusal}); falling back "
@@ -158,10 +176,26 @@ class ProjectionSolver(InstationarySolverBase):
 
     def _setup_spectral_step(self, sgrid):
         k0 = self._time_stepping.get_next_step_size()
-        self._sgrid = sgrid
-        self._spectral = build_spectral_projection_step(
+        step, init_state, read_state = build_spectral_projection_step(
             sgrid, visc=self._visc, dt=k0, dtype=self._dtype,
             device=self._device)
+        if self._device_mesh is not None:
+            # slab-sharded over the mesh (raises NotStructured when the
+            # grid's axis 1 does not divide the shard count): the state
+            # is built whole, then split into slabs, and read whole
+            sharded, shard_state = shard_spectral_step(
+                step, sgrid, self._device_mesh)
+            whole_init, whole_read = init_state, read_state
+
+            def init_state(*flat):
+                return shard_state(whole_init(*flat))
+
+            def read_state(states):
+                return whole_read(sharded.gather_state(states))
+
+            step = sharded
+        self._sgrid = sgrid
+        self._spectral = (step, init_state, read_state)
         self._spectral_state = None
         self._step_kind = "spectral"
 
@@ -187,12 +221,15 @@ class ProjectionSolver(InstationarySolverBase):
 
         k0 = self._time_stepping.get_next_step_size()
         self._v_dofs = v_dofs
-        try:
-            self._setup_fast_step(vel_bc, pres_mask, k0)
-        except StructureError as exc:
-            # only the engine's own refusal falls back, and visibly
-            self.monitor.record("fastop_fallback", reason=str(exc))
-            self._setup_cell_loop_step(vel_bc, pres_mask, k0)
+        if self._device_mesh is not None:
+            self._setup_halo_step(vel_bc, pres_mask, k0)
+        else:
+            try:
+                self._setup_fast_step(vel_bc, pres_mask, k0)
+            except StructureError as exc:
+                # only the engine's own refusal falls back, and visibly
+                self.monitor.record("fastop_fallback", reason=str(exc))
+                self._setup_cell_loop_step(vel_bc, pres_mask, k0)
         self._body_rhs = None
         if self._has_body_force():
             self._body_rhs = self._convert_body_rhs(
@@ -247,9 +284,34 @@ class ProjectionSolver(InstationarySolverBase):
             with_residuals=True)
         self._step_kind = "generic"
 
+    def _setup_halo_step(self, vel_bc, pres_mask, k0):
+        """Domain-decomposed step: state partitioned over the mesh's
+        shards, halo exchange per matvec."""
+        with timed_region(self.monitor, "setup_engine"):
+            hops = HaloCellOperator(self._space, self._device_mesh,
+                                    dtype=self._dtype)
+        self._hops = hops
+        self._halo_step = build_halo_projection_step(
+            hops, visc=self._visc, dt=k0,
+            cg_iters=self._cg_iters_user or (40, 400, 20),
+            vel_bc=vel_bc, pres_bc_mask=pres_mask,
+            conv_coeff=self._conv_coeff, cg_rtol=self._cg_rtol,
+            with_residuals=True)
+        self._step_kind = "halo"
+        self._sync_halo_from_canonical()
+
+    def _sync_halo_from_canonical(self):
+        hops = self._hops
+        self._uh = hops.pad_velocity(self._u)
+        self._uh_old = hops.pad_velocity(self._u_old)
+        self._ph = hops.pad_pressure(self._p)
+        self._phih = hops.pad_pressure(self._phi)
+
     def _convert_body_rhs(self, body_rhs_flat):
         if self._step_kind == "fast":
             return self._fast.interleaved_to_planar(body_rhs_flat)
+        if self._step_kind == "halo":
+            return self._hops.pad_velocity(self._tensor(body_rhs_flat))
         return self._tensor(body_rhs_flat)
 
     def _sync_planar_from_canonical(self):
@@ -267,6 +329,8 @@ class ProjectionSolver(InstationarySolverBase):
             self._spectral_state = None        # rebuilt lazily from _u
         elif kind == "fast":
             self._sync_planar_from_canonical()
+        elif kind == "halo":
+            self._sync_halo_from_canonical()
 
     def _assemble_body_rhs(self, t=None):
         """Velocity-space load vector of the (steady or frozen-at-t) body
@@ -343,6 +407,26 @@ class ProjectionSolver(InstationarySolverBase):
             self._u = fast.planar_to_interleaved(u2_new)
             self._p = fast.unpermute_pressure(p2_new)
             self._phi = fast.unpermute_pressure(phi2)
+        elif self._step_kind == "halo":
+            hops = self._hops
+            bc_values = None
+            if len(self._v_dofs):
+                vals_flat = np.zeros(space.n_velocity_dofs)
+                vals_flat[self._v_dofs] = np.asarray(
+                    self._vel_dirichlet.values(next_time))
+                bc_values = hops.pad_velocity(self._tensor(vals_flat))
+            uh_new, ph_new, phih, res = self._halo_step(
+                self._uh, self._uh_old, self._ph, self._phih, alpha, eta,
+                bc_values=bc_values, k=k, body_rhs=self._body_rhs)
+            self.monitor.record("linear_solve", residual=torch.max(res),
+                                residuals=res, label="projection-cg-halo")
+            self._uh_old, self._uh = self._uh, uh_new
+            self._ph, self._phih = ph_new, phih
+            # canonical (space-numbering) mirrors
+            self._u_old2, self._u_old = self._u_old, self._u
+            self._u = hops.unpad_velocity(uh_new)
+            self._p = hops.unpad_pressure(ph_new)
+            self._phi = hops.unpad_pressure(phih)
         else:
             bc_values = None
             if len(self._v_dofs):

@@ -24,6 +24,8 @@ import torch
 from navierstokes_tpu_torch import config
 from navierstokes_tpu_torch.linalg.direct import HostSparseLU, dense_solve
 from navierstokes_tpu_torch.linalg.krylov import gmres, jacobi_preconditioner
+from navierstokes_tpu_torch.parallel.comm import as_mesh
+from navierstokes_tpu_torch.parallel.sharded_mixed import ShardedMixedOperator
 from navierstokes_tpu_torch.solvers.base import SolverBase, _auto_linear_mode
 
 
@@ -138,18 +140,28 @@ class StationarySolverBase(SolverBase):
 
     ``device`` / ``dtype``: where and in which precision the state lives
     (default: the card, ``config.default_dtype``; the CPU only with
-    ``device="cpu"``).  ``device_mesh`` (several devices) is not ported
-    yet.
+    ``device="cpu"``).  ``device_mesh`` (a ``parallel.comm.DeviceMesh`` or
+    a plain sequence of devices) shards the residual and Jacobian sweeps
+    over its shards' cells (``parallel/sharded_mixed.py``) and makes the
+    matrix-free ``pcd`` mode the default linear solve; the state then
+    lives on shard 0's device, which ``device`` must be if given.
     """
 
     def __init__(self, mesh, boundary_markers, form_convective_term="standard",
                  tol=None, maxiter=50, tol_picard=1e-2, maxiter_picard=10,
                  form_viscous_term="reduced", linear_solver=None,
                  device_mesh=None, *, device=None, dtype=None):
+        device_mesh = as_mesh(device_mesh)
         if device_mesh is not None:
-            raise NotImplementedError(
-                "the cell-sharded Newton-Krylov stack over several devices "
-                "is not ported yet (ROADMAP item 15)")
+            if device is None:
+                device = device_mesh.devices[0]
+            elif torch.device(device) != device_mesh.devices[0]:
+                raise ValueError(f"device {device} is not the mesh's shard "
+                                 f"0 ({device_mesh.devices[0]})")
+            # the PCD mode is the only matrix-free linear path, so it
+            # becomes the default
+            if linear_solver is None:
+                linear_solver = "pcd"
         super().__init__(mesh, boundary_markers, form_convective_term,
                          form_viscous_term, device=device, dtype=dtype)
         if tol is None:
@@ -168,6 +180,9 @@ class StationarySolverBase(SolverBase):
         assert self._equation_coefficients is not None
         self._setup_space()
         self._setup_operator()
+        if self._device_mesh is not None:
+            self._operator = ShardedMixedOperator(self._operator,
+                                                  self._device_mesh)
         self._compile_boundary_conditions()
         self._solution = torch.zeros(self._space.n_dofs, dtype=self._dtype,
                                      device=self._device)

@@ -151,7 +151,12 @@ class StructuredConvection:
         return out
 
     def __call__(self, U):
-        u_loc = self.gather_local(U)                      # (t,i,*g,d)
+        return self.scatter_local(self.quadrature(self.gather_local(U)))
+
+    def quadrature(self, u_loc):
+        """(ntau, nlu, *grid, d) local values -> (ntau, nlu, *grid, d)
+        local contributions; pointwise in the grid, so it takes any grid
+        extent (a slab, too)."""
         ntau, nlu = u_loc.shape[:2]
         tail = tuple(u_loc.shape[2:])
         d = tail[-1]
@@ -165,4 +170,4 @@ class StructuredConvection:
         for e in range(1, d):
             conv.addcmul_(grad_u[:, e], u_q[..., e:e + 1])
         r = torch.bmm(self.WN, conv.reshape(ntau, nq, -1))
-        return self.scatter_local(r.reshape((ntau, nlu) + tail))
+        return r.reshape((ntau, nlu) + tail)

@@ -31,8 +31,12 @@ Left behind as TPU artefacts:
     :func:`spectral_ops_to_numpy` carries them across instead.
   * ``lax.scan`` chunks of steps: the port steps eagerly.
 
-``shard_spectral_step`` waits for the multi-device slice and raises
-``NotImplementedError``.
+``shard_spectral_step`` slab-decomposes a built step over the shards of
+a device mesh, with the collectives written out (the JAX function leaves
+them to GSPMD): the class grids are split along grid axis 1, the
+convection reads a halo of its stencil's reach from the neighbouring
+slabs, the DFT along that axis computes each shard's output rows from an
+all-gather of the axis, and every per-mode solve is local.
 """
 
 from __future__ import annotations
@@ -44,8 +48,12 @@ import numpy as np
 import torch
 
 from navierstokes_tpu_torch import config
-from navierstokes_tpu_torch.structured.grid import PeriodicStructuredTH
-from navierstokes_tpu_torch.structured.ops import StructuredConvection
+from navierstokes_tpu_torch.parallel.comm import (allgather, as_mesh,
+                                                  ppermute)
+from navierstokes_tpu_torch.structured.grid import (NotStructured,
+                                                    PeriodicStructuredTH)
+from navierstokes_tpu_torch.structured.ops import (StructuredConvection,
+                                                   _roll)
 
 # the per-mode arrays that spectral_ops_to_numpy / _from_numpy carry
 _SPLIT_ARRAYS = ("Mhat", "Khat", "Ghat", "Dhat", "P", "PH")
@@ -352,6 +360,41 @@ def spectral_ops_from_numpy(sgrid, d, dtype=None, device=None):
     return ops
 
 
+def _axpy(a, X: SplitC, Y):
+    if Y is None:
+        return SplitC(a * X.re, a * X.im)
+    return SplitC(torch.add(Y.re, X.re, alpha=a),
+                  torch.add(Y.im, X.im, alpha=a))
+
+
+def _modal_update(ops, Ch, Uh, Uh_old, Ph, alpha, k, visc, has_zero_mode):
+    """The per-mode part of one step, from the spectral convection ``Ch``
+    to (Uh_new, Ph_new); ``has_zero_mode``: ``ops`` holds the constant
+    mode at its index 0, whose pressure is zeroed."""
+    a0, a1, a2 = alpha
+    # (1) Helmholtz: (a0/k M + nu K) u* = -(a1/k)M u - (a2/k)M u_old
+    #                                     - C(extrapolated u) - G p
+    Bh = _axpy(-(a1 / k), ops.mass(Uh), None)
+    Bh = _axpy(-(a2 / k), ops.mass(Uh_old), Bh)
+    Bh = _axpy(-1.0, Ch, Bh)
+    Bh = _axpy(-1.0, ops.grad(Ph), Bh)
+    Ustar_h = ops.helmholtz_solve(a0 / k, visc, Bh)
+
+    # (2) incremental pressure Poisson (exact, mean-free)
+    Phi_h = ops.poisson_solve(_axpy(a0 / k, ops.div(Ustar_h), None))
+
+    # (3) velocity correction + pressure update
+    Uh_new = _axpy(-(k / a0), ops.mass_solve(ops.grad(Phi_h)), Ustar_h)
+    # fresh sums, so zeroing the constant mode touches no tensor that the
+    # old state still holds
+    Ph_new = SplitC(Ph.re + Phi_h.re, Ph.im + Phi_h.im)
+    if has_zero_mode:
+        zero_mode = (0,) * ops.dim
+        Ph_new.re[zero_mode] = 0.0
+        Ph_new.im[zero_mode] = 0.0
+    return Uh_new, Ph_new
+
+
 def build_spectral_projection_step(sgrid: PeriodicStructuredTH, *, visc,
                                    dt, dtype=None, device=None, ops=None):
     """Fused projection step on class grids with exact spectral solves.
@@ -379,42 +422,16 @@ def build_spectral_projection_step(sgrid: PeriodicStructuredTH, *, visc,
         raise ValueError("ops were built on another class grid")
     dev, rdtype = ops.device, ops.rdtype
     conv = StructuredConvection(sgrid, dtype=rdtype, device=dev)
-    zero_mode = (0,) * len(sgrid.shape)
     visc, dt = float(visc), float(dt)
-
-    def axpy(a, X: SplitC, Y):
-        if Y is None:
-            return SplitC(a * X.re, a * X.im)
-        return SplitC(torch.add(Y.re, X.re, alpha=a),
-                      torch.add(Y.im, X.im, alpha=a))
 
     def step(state, alpha, eta, k=None):
         U, U_old, Uh, Uh_old, Ph = state
-        a0, a1, a2 = alpha
         if k is None:
             k = dt
-
-        # (1) Helmholtz: (a0/k M + nu K) u* = -(a1/k)M u - (a2/k)M u_old
-        #                                     - C(extrapolated u) - G p
         U_ext = eta[0] * U + eta[1] * U_old
         Ch = ops.fwd_u(conv(U_ext))
-        Bh = axpy(-(a1 / k), ops.mass(Uh), None)
-        Bh = axpy(-(a2 / k), ops.mass(Uh_old), Bh)
-        Bh = axpy(-1.0, Ch, Bh)
-        Bh = axpy(-1.0, ops.grad(Ph), Bh)
-        Ustar_h = ops.helmholtz_solve(a0 / k, visc, Bh)
-
-        # (2) incremental pressure Poisson (exact, mean-free)
-        Phi_h = ops.poisson_solve(axpy(a0 / k, ops.div(Ustar_h), None))
-
-        # (3) velocity correction + pressure update
-        Uh_new = axpy(-(k / a0), ops.mass_solve(ops.grad(Phi_h)), Ustar_h)
-        # fresh sums, so zeroing the constant mode touches no tensor that
-        # the old state still holds
-        Ph_new = SplitC(Ph.re + Phi_h.re, Ph.im + Phi_h.im)
-        Ph_new.re[zero_mode] = 0.0
-        Ph_new.im[zero_mode] = 0.0
-
+        Uh_new, Ph_new = _modal_update(ops, Ch, Uh, Uh_old, Ph, alpha, k,
+                                       visc, True)
         U_new = ops.inv_u(Uh_new)
         return (U_new, U, Uh_new, Uh, Ph_new)
 
@@ -434,13 +451,253 @@ def build_spectral_projection_step(sgrid: PeriodicStructuredTH, *, visc,
         p_flat = sgrid.grid_to_p(_to_numpy(ops.inv_p(Ph)))
         return u_flat, p_flat
 
-    step.ops = ops
+    step.ops, step.conv, step.visc, step.dt = ops, conv, visc, dt
     return step, init_state, read_state
 
 
+# ---------------------------------------------------------------------------
+# several shards: the slab-sharded spectral step
+# ---------------------------------------------------------------------------
+
+def _slab(t, axis, s, w, dev):
+    return t.narrow(axis, s * w, w).contiguous().to(dev, non_blocking=True)
+
+
+def _slab_ops(ops, s, w, dev):
+    """Shard ``s``'s view of ``ops``: every per-mode array restricted to
+    the slab [s*w, (s+1)*w) of grid axis 1 (tensor axis 1), on ``dev``.
+    The per-mode applies and solves read nothing else."""
+    view = SpectralOperators.__new__(SpectralOperators)
+    view.sgrid, view.shape, view.d = ops.sgrid, ops.shape, ops.d
+    view.dim, view.n_uclass = ops.dim, ops.n_uclass
+    view.device, view.rdtype = dev, ops.rdtype
+    for name in _SPLIT_ARRAYS:
+        setattr(view, name, tuple(_slab(a, 1, s, w, dev)
+                                  for a in getattr(ops, name)))
+    for name in _REAL_ARRAYS:
+        setattr(view, name, _slab(getattr(ops, name), 1, s, w, dev))
+    return view
+
+
+class _SlabDFT:
+    """``MatmulDFT`` on slabs of (a, *grid, d) split along tensor axis 2
+    (grid axis 1): the other axes transform locally with the full
+    matrices; along the split axis each shard all-gathers its input and
+    multiplies by its own rows of the cos/sin matrices."""
+
+    def __init__(self, dft, mesh, w):
+        self.mesh, self.n = mesh, float(np.prod(dft.shape))
+        self.mats = []
+        for s, dev in enumerate(mesh.devices):
+            per_axis = []
+            for i, (C, S) in enumerate(dft.mats):
+                if i == 1:
+                    C, S = C[s * w:(s + 1) * w], S[s * w:(s + 1) * w]
+                per_axis.append((C.contiguous().to(dev),
+                                 S.contiguous().to(dev)))
+            self.mats.append(per_axis)
+
+    def _inputs(self, i, *xs):
+        """Per axis i, the shard inputs: local, or all-gathered along the
+        split axis."""
+        if i != 1:
+            return xs
+        return tuple(None if x is None else allgather(x, self.mesh, 2)
+                     for x in xs)
+
+    def fwd(self, Xs):
+        re, im = list(Xs), None
+        for i in range(len(self.mats[0])):
+            ax = 1 + i
+            re_in, im_in = self._inputs(i, re, im)
+            mats = [m[i] for m in self.mats]
+            if im is None:
+                re = [_mm_axis(C, x, ax) for (C, _), x in zip(mats, re_in)]
+                im = [-_mm_axis(S, x, ax) for (_, S), x in zip(mats, re_in)]
+            else:
+                re, im = (
+                    [_mm_axis(S, y, ax, add=_mm_axis(C, x, ax))
+                     for (C, S), x, y in zip(mats, re_in, im_in)],
+                    [_mm_axis(S, x, ax, add=_mm_axis(C, y, ax), alpha=-1.0)
+                     for (C, S), x, y in zip(mats, re_in, im_in)])
+        return [SplitC(r, m) for r, m in zip(re, im)]
+
+    def inv_real(self, Zs):
+        s = 1.0 / self.n
+        re, im = [z.re for z in Zs], [z.im for z in Zs]
+        last = len(self.mats[0]) - 1
+        for i in range(last + 1):
+            ax = 1 + i
+            re_in, im_in = self._inputs(i, re, im)
+            mats = [m[i] for m in self.mats]
+            re_new = [_mm_axis(S, y, ax, add=_mm_axis(C, x, ax), alpha=-1.0)
+                      for (C, S), x, y in zip(mats, re_in, im_in)]
+            if i < last:
+                im = [_mm_axis(S, x, ax, add=_mm_axis(C, y, ax))
+                      for (C, S), x, y in zip(mats, re_in, im_in)]
+            re = re_new
+        return [s * r for r in re]
+
+
+class _SlabConvection:
+    """``StructuredConvection`` on slabs of (2^dim, *grid, d) split along
+    tensor axis 2 (grid axis 1).
+
+    The rolls along the split axis reach ``smin..smax`` columns (the local
+    nodes' shifts), so each shard receives ``h = smax - smin`` columns
+    from each neighbouring slab (periodic), evaluates the quadrature on
+    its columns widened by the reach, and scatters back onto its own
+    columns with no second exchange."""
+
+    def __init__(self, conv, mesh, w):
+        sg = conv.sgrid
+        shift1 = sg.u_shift[..., 1]
+        self.smin, self.smax = int(shift1.min()), int(shift1.max())
+        self.h = self.smax - self.smin
+        if self.h > w:
+            raise NotStructured(f"slabs of {w} columns are narrower than "
+                                f"the convection's reach ({self.h})")
+        self.sgrid, self.mesh, self.w = sg, mesh, w
+        # the quadrature's tables on each shard's device
+        self.convs = {}
+        for dev in mesh.physical_devices:
+            c = StructuredConvection.__new__(StructuredConvection)
+            c.sgrid, c.device, c.dtype = sg, dev, conv.dtype
+            c.N2, c.g2_rows, c.WN = (t.to(dev) for t in
+                                     (conv.N2, conv.g2_rows, conv.WN))
+            self.convs[dev] = c
+
+    def _widened(self, Us):
+        """Each slab with h columns of its neighbours on both sides."""
+        n, h, w = len(self.mesh), self.h, self.w
+        if h == 0:
+            return list(Us)
+        left = ppermute([U.narrow(2, w - h, h) for U in Us],
+                        [(s, (s + 1) % n) for s in range(n)], self.mesh)
+        right = ppermute([U.narrow(2, 0, h) for U in Us],
+                         [(s, (s - 1) % n) for s in range(n)], self.mesh)
+        return [torch.cat([a, U, b], dim=2)
+                for a, U, b in zip(left, Us, right)]
+
+    @staticmethod
+    def _other_axes(s):
+        s = np.array(s)
+        s[1] = 0
+        return s
+
+    def __call__(self, Us):
+        sg, w = self.sgrid, self.w
+        w_r = w + self.h
+        out = []
+        for s, Ue in enumerate(self._widened(Us)):
+            conv = self.convs[self.mesh.devices[s]]
+            u_loc = Ue.new_empty((sg.n_tau, sg.n_local_u, Ue.shape[1], w_r)
+                                 + tuple(Ue.shape[3:]))
+            for t in range(sg.n_tau):
+                for l in range(sg.n_local_u):
+                    sh = sg.u_shift[t, l]
+                    u_loc[t, l] = _roll(Ue[sg.u_class[t, l]],
+                                        self._other_axes(sh)).narrow(
+                        1, int(sh[1]) - self.smin, w_r)
+            R = conv.quadrature(u_loc)
+            acc = R.new_zeros((sg.n_uclass,) + tuple(Us[s].shape[1:]))
+            for t in range(sg.n_tau):
+                for l in range(sg.n_local_u):
+                    sh = sg.u_shift[t, l]
+                    acc[int(sg.u_class[t, l])] += _roll(
+                        R[t, l], -self._other_axes(sh)).narrow(
+                        1, self.smax - int(sh[1]), w)
+            out.append(acc)
+        return out
+
+
 def shard_spectral_step(step, sgrid, device_mesh, axis_name=None):
-    """Slab-decompose a built spectral step over several devices: not
-    ported yet (it comes with the multi-device slice)."""
-    raise NotImplementedError(
-        "shard_spectral_step is not ported yet: the slab-sharded spectral "
-        "step comes with the multi-device slice")
+    """Slab-decompose a built spectral step over the shards of a device
+    mesh.
+
+    The class grids are split along grid axis 1 (tensor axis 2 of ``U``,
+    axis 1 of the spectral fields and of every per-mode array): the
+    convection exchanges a halo of its stencil's reach with the
+    neighbouring slabs, the DFT along the split axis computes each
+    shard's output rows from an all-gather of the axis, and the per-mode
+    solves are local.  ``step`` is a step of
+    :func:`build_spectral_projection_step` on ``sgrid``; ``device_mesh``
+    a :class:`~navierstokes_tpu_torch.parallel.comm.DeviceMesh` or a
+    plain sequence of devices (``axis_name`` names its axis).
+
+    Returns ``(sharded_step, shard_state)``: ``shard_state`` splits an
+    ``init_state`` result into one state per shard, and
+    ``sharded_step(states, alpha, eta, k=None)`` advances them;
+    ``sharded_step.gather_state(states)`` reassembles the whole state on
+    the step's device (for its ``read_state``).
+
+    Raises ``NotStructured`` when grid axis 1 does not divide into the
+    shard count, or its slabs are narrower than the convection's reach.
+    """
+    mesh = as_mesh(device_mesh, axis_name or "shard")
+    n = len(mesh)
+    g1 = sgrid.shape[1]
+    if g1 % n != 0:
+        raise NotStructured(f"grid axis 1 ({g1}) not divisible by {n} "
+                            "shards")
+    w = g1 // n
+    ops, visc, dt = step.ops, step.visc, step.dt
+    conv = _SlabConvection(step.conv, mesh, w)
+    dft = _SlabDFT(ops.dft, mesh, w)
+    views = [_slab_ops(ops, s, w, dev) for s, dev in enumerate(mesh)]
+    dim = ops.dim
+    to_modes = tuple(range(1, 1 + dim)) + (0, 1 + dim)
+    to_grids = (dim,) + tuple(range(dim)) + (dim + 1,)
+
+    def fwd_u(Us):
+        return [SplitC(Z.re.permute(to_modes).contiguous(),
+                       Z.im.permute(to_modes).contiguous())
+                for Z in dft.fwd(Us)]
+
+    def inv_u(Uhs):
+        return dft.inv_real([SplitC(Z.re.permute(to_grids).contiguous(),
+                                    Z.im.permute(to_grids).contiguous())
+                             for Z in Uhs])
+
+    def sharded_step(states, alpha, eta, k=None):
+        if k is None:
+            k = dt
+        U_ext = [eta[0] * st[0] + eta[1] * st[1] for st in states]
+        Chs = fwd_u(conv(U_ext))
+        updates = [_modal_update(view, Ch, st[2], st[3], st[4], alpha, k,
+                                 visc, s == 0)
+                   for s, (view, Ch, st) in enumerate(zip(views, Chs,
+                                                          states))]
+        U_new = inv_u([u[0] for u in updates])
+        return [(Un, st[0], Uh, st[2], Ph)
+                for Un, st, (Uh, Ph) in zip(U_new, states, updates)]
+
+    # tensor axis of grid axis 1 in each state field
+    axes = (2, 2, 1, 1, 1)
+
+    def split(x, axis, s, dev):
+        if isinstance(x, SplitC):
+            return SplitC(_slab(x.re, axis, s, w, dev),
+                          _slab(x.im, axis, s, w, dev))
+        return _slab(x, axis, s, w, dev)
+
+    def shard_state(state):
+        return [tuple(split(x, a, s, dev) for x, a in zip(state, axes))
+                for s, dev in enumerate(mesh)]
+
+    def join(parts, axis):
+        return torch.cat([p.to(ops.device) for p in parts], dim=axis)
+
+    def gather_state(states):
+        out = []
+        for i, axis in enumerate(axes):
+            parts = [st[i] for st in states]
+            if isinstance(parts[0], SplitC):
+                out.append(SplitC(join([p.re for p in parts], axis),
+                                  join([p.im for p in parts], axis)))
+            else:
+                out.append(join(parts, axis))
+        return tuple(out)
+
+    sharded_step.gather_state = gather_state
+    return sharded_step, shard_state

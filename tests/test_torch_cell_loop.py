@@ -116,12 +116,22 @@ def test_cell_operator_matvecs_match(mesh_name):
 
 
 def test_device_mesh_is_one_device():
+    """``device_mesh()`` is one shard; more shards are a mesh (CPU shards
+    here; without a card the default, the cards, raises), and the cell
+    operator over a plain list of two devices equals the one-shard one."""
     assert device_mesh(device="cpu") == [torch.device("cpu")]
-    with pytest.raises(NotImplementedError, match="ROADMAP item 15"):
-        device_mesh(4)
+    assert device_mesh(4, device="cpu") == ["cpu"] * 4
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError):
+            device_mesh(4)
     _, to = _ops("box8")
-    with pytest.raises(NotImplementedError, match="ROADMAP item 15"):
-        ShardedCellOperator(to.space, ["cpu", "cpu"])
+    two = ShardedCellOperator(to.space, ["cpu", "cpu"])
+    assert two.n_dev == 2 and two.device == torch.device("cpu")
+    u = torch.tensor(np.random.default_rng(7).standard_normal(
+        to.space.n_velocity_dofs))
+    np.testing.assert_allclose(two.make_velocity_mass()(u).numpy(),
+                               to.make_velocity_mass()(u).numpy(), rtol=0,
+                               atol=ATOL_APPLY)
 
 
 def _masks(space, case):

@@ -334,9 +334,14 @@ def test_parts_left_out_raise_with_their_roadmap_item(monkeypatch):
 
     mesh, markers, bcs = setups.lid_driven_cavity_setup(4)
     ts = BDFTimeStepping(0.0, 1.0, desired_start_time_step=0.01)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 15"):
+    # the multi-device step is ported (item 15): the state lives on the
+    # mesh's shard 0, which an explicit device must be
+    with pytest.raises(ValueError, match="shard 0"):
         ProjectionSolver(mesh, markers, "standard", ts, device="cpu",
-                         device_mesh=["cuda:0", "cuda:1"])
+                         device_mesh=["meta", "meta"])
+    halo = ProjectionSolver(mesh, markers, "standard", ts,
+                            device_mesh=["cpu", "cpu"])
+    assert halo._device == torch.device("cpu") and len(halo._device_mesh) == 2
     # one device is no mesh to decompose over
     ProjectionSolver(mesh, markers, "standard", ts, device="cpu",
                      device_mesh=["cpu"])

@@ -208,10 +208,13 @@ def test_missing_names_raise_with_their_item():
                                                  dtype=torch.float64),
                                      {"cc": 1.0, "cv": 1.0})
     assert img.shape == (space.n_unodes, 2) and not img.any()
-    # one device is the cell-loop step's mesh; more is item 15
+    # one device is the cell-loop step's mesh; more is a shard mesh
+    # (item 15), on the cards by default
     assert sharded.device_mesh(1, device="cpu") == [torch.device("cpu")]
-    with pytest.raises(NotImplementedError, match="ROADMAP item 15"):
-        sharded.device_mesh(2)
+    assert len(sharded.device_mesh(2, device="cpu")) == 2
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError):
+            sharded.device_mesh(2)
 
 
 # ---------------------------------------------------------------------------
@@ -266,6 +269,8 @@ def test_new_modules_and_chip_smoke_import_no_jax():
             "import navierstokes_tpu_torch.utils.signal\n"
             "import navierstokes_tpu_torch.mesh.generators\n"
             "import navierstokes_tpu_torch.parallel.sharded\n"
+            "import navierstokes_tpu_torch.parallel.sharded_mixed\n"
+            "import navierstokes_tpu_torch.solvers.halo_step\n"
             "assert not any(m == 'jax' or m.startswith('jax.') "
             "for m in sys.modules), 'jax imported'\n"
             "assert 'navierstokes_tpu' not in sys.modules\n")

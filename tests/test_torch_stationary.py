@@ -216,6 +216,10 @@ def test_linear_mode_policy_and_missing_multi_device():
     assert auto_linear_mode(4501, "cuda") == "pcd"
     assert auto_linear_mode(4501) == "pcd"
     mesh, markers, _ = setups.lid_driven_cavity_setup(2)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 15"):
-        StationarySolver(mesh, markers, device="cpu",
-                         device_mesh=["cuda:0", "cuda:1"])
+    # a device mesh makes the matrix-free PCD mode the default
+    s = StationarySolver(mesh, markers, device="cpu",
+                         device_mesh=["cpu", "cpu"])
+    assert s._linear_solver == "pcd" and len(s._device_mesh) == 2
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError):
+            StationarySolver(mesh, markers, device_mesh=["cuda:0", "cuda:1"])

@@ -516,5 +516,22 @@ def test_cpu_dtype_policy():
 
 
 def test_shard_spectral_step_not_ported():
-    with pytest.raises(NotImplementedError, match="multi-device"):
-        tspec.shard_spectral_step(None, None, None)
+    """Ported (item 15): 4 steps over 2 CPU shards equal the unsharded
+    step's (tests/test_torch_spectral_sharded.py holds the rest)."""
+    from navierstokes_tpu_torch.parallel.sharded import device_mesh
+
+    case = _case(2)
+    step, init, read = tspec.build_spectral_projection_step(
+        case.sg, visc=0.01, dt=1e-3, device="cpu")
+    sharded, shard_state = tspec.shard_spectral_step(
+        step, case.sg, device_mesh(2, device="cpu"))
+    u0 = np.random.default_rng(3).standard_normal(
+        case.sg.space.n_velocity_dofs)
+    p0 = np.zeros(case.sg.space.n_pnodes)
+    one, two = init(u0, u0, p0), shard_state(init(u0, u0, p0))
+    for _ in range(4):
+        one = step(one, (1.5, -2.0, 0.5), (2.0, -1.0))
+        two = sharded(two, (1.5, -2.0, 0.5), (2.0, -1.0))
+    for a, b in zip(read(one), read(sharded.gather_state(two))):
+        np.testing.assert_allclose(b, a, rtol=0,
+                                   atol=1e-12 * np.abs(a).max())
