@@ -102,8 +102,9 @@ non-zero):
                syncs per step and the problem's stdout line count.
 16. dfg     -- DFG 2D-2 (Schafer-Turek, Re = 100) at resolution 3 (75,509
                DoFs, every square operator an AffineBand under the RCM
-               order), f32, through a mirror of the JAX package's demo
-               class, seeded by io/checkpoint from a saturated state of the
+               order), f32, through the port's demo class
+               (demo/dfg_benchmark_projection.py), seeded by io/checkpoint
+               from a saturated state of the
                same mesh: 1,400 steps of dt = 0.005 with the reaction force
                on the card every step, read once at the end.  Requires
                finite forces and, over the last 5 time units, c_D,max in
@@ -127,7 +128,7 @@ non-zero):
                call, which also builds the device pattern, apart from the
                median of the rest), the copy to the host, splu, the solve
                and the residual.
-19. newton_cavity -- demo/cavity_flow.py's StationaryProblem at 96^2,
+19. newton_cavity -- demo/cavity_flow.py's StationaryProblem at 64^2,
                Re = 100, f64, with the card's default linear mode, which
                must resolve to "pcd" (matrix-free PCD + FGMRES + AMG).
                Requires ||F||_2 <= 1e-10 and the vertical centre line's
@@ -217,7 +218,33 @@ non-zero):
                max-norm), a second card run bit for bit; a checkpoint of
                the sharded channel resumes bit for bit on one device and
                back, and a resumed sharded run equals the unbroken one.
-33. the total seconds, the ``kernels`` line, then the card's nvidia-smi
+33. native  -- the g++ mesh helper (navierstokes_tpu_torch/native):
+               built from the repository's fastmesh.cpp (the library
+               loaded must be that build), then on the 48^3 box's topology
+               unique_rows (facets, edges) and build_transpose (the P2
+               velocity table) array-equal to the NumPy versions they
+               replace; both timed on the card's host.
+34. demo_gravity -- the port's demo/gravity_driven_flow.py class at the
+               shipped n = 50, f64, host LU: one nonlinear solve,
+               ||F|| <= 1e-10, ||u|| and max|u| within 1e-8 and the total
+               boundary mass flux within 1e-9 of the JAX package's CPU
+               values.
+35. demo_taylor_green -- the port's demo/taylor_green_vortex.py class
+               (ImplicitBDFSolver, 32^2, 100 steps to t = 1, frozen LU),
+               f64: L2(u) against the analytic decay within 1e-8 of the
+               JAX package's CPU value.
+36. demo_periodic_box_3d -- the port's demo/periodic_box_3d.py class
+               (16^3, 50 steps, f32): the spectral step, max|u| within
+               1e-3 of the analytic decay.
+37. convergence -- the port's convergence_test/taylor_green_vortex.py
+               in f64: projection mode at 128^2 over 6 levels on the
+               spectral step and on the banded step (prefer_spectral
+               False, cg_rtol 1e-12: circulant_apply must launch), then
+               bdf mode at 32^2 over 4 levels; every L2(u) within 1e-6 of
+               the JAX package's CPU value and the observed orders past
+               the first in [1.8, 2.4].  Every apps phase prints its
+               launches per step of both kernels.
+38. the total seconds, the ``kernels`` line, then the card's nvidia-smi
    line, then the last line ``{"ok": true, "device": {...}}``.
 
 ``--profile DIR`` also writes a torch.profiler table of 10 steps of each
@@ -227,7 +254,7 @@ DFG, monolithic DFG, 3D cavity, shell), of one Newton iteration of newton_dfg an
 host time and input shape) to DIR.
 ``--phases LIST`` runs only the named groups (``kernels``,
 ``structured``, ``solver``, ``problems``, ``newton``, ``mesh3d``,
-``multidevice``; the
+``multidevice``, ``apps``; the
 device and build phases always run) and then prints no ``kernels`` line.  ``--baseline DIR``
 also times the kernels of another checkout of this repository (its ``navierstokes_tpu_torch``, built from its own
 source) on the same inputs in the same process, in the order baseline,
@@ -241,6 +268,7 @@ import io
 import json
 import math
 import os
+import pathlib
 import statistics
 import subprocess
 import sys
@@ -253,22 +281,31 @@ import scipy
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
+from navierstokes_tpu_torch import native
 from navierstokes_tpu_torch.assembly import cuda_band
 from navierstokes_tpu_torch.assembly.fastop import (FastTaylorHood,
                                                     combine_circulant,
                                                     planar_ops_from_numpy,
                                                     planar_ops_to_numpy)
+from navierstokes_tpu_torch.convergence_test import \
+    taylor_green_vortex as tg_study
+from navierstokes_tpu_torch.demo import (backward_facing_step, blasius_flow,
+                                         cavity_flow,
+                                         dfg_benchmark_projection,
+                                         gravity_driven_flow,
+                                         periodic_box_3d)
+from navierstokes_tpu_torch.demo import taylor_green_vortex as tg_demo
+from navierstokes_tpu_torch.demo.dfg_benchmark_projection import \
+    DFGBenchmark2D2Projection
 from navierstokes_tpu_torch.fem.bcs import PressureBCType, VelocityBCType
 from navierstokes_tpu_torch.fem.spaces import TaylorHoodSpace, axis_periodic
 from navierstokes_tpu_torch.io import load_checkpoint, save_checkpoint
-from navierstokes_tpu_torch.mesh import (backward_facing_step, blasius_plate,
-                                         channel_with_cylinder, hyper_cube,
+from navierstokes_tpu_torch.mesh import (channel_with_cylinder, hyper_cube,
                                          read_geo_msh, xdmf_io)
 from navierstokes_tpu_torch.parallel import device_mesh
 from navierstokes_tpu_torch.parallel.halo import HaloCellOperator
 from navierstokes_tpu_torch.problems import (EquationCoefficientHandler,
-                                             InstationaryProblem,
-                                             StationaryProblem)
+                                             InstationaryProblem)
 from navierstokes_tpu_torch.setups import (channel_setup, duct_profile,
                                            duct_setup,
                                            lid_driven_cavity_setup,
@@ -1711,7 +1748,7 @@ def phase_solver_parity(dev):
 # dfg_parity is the same application at resolution 1 in f64.
 PROBLEMS = {"cavity_n": 128, "cavity_steps": 200, "output_every": 50,
             "dfg_res": 3.0, "dfg_dt": 0.005, "dfg_steps": 1400,
-            "dfg_window": 5.0, "dfg_print_every": 200,
+            "dfg_window": 5.0,
             "dfg_seed": "benchmarks/states/dfg_2d2_state_mono_res3_sym.npz",
             "dfg_dofs": (67008, 8501), "parity_res": 1.0,
             "parity_warm_steps": 40, "parity_steps": 10}
@@ -1719,72 +1756,7 @@ PROBLEMS = {"cavity_n": 128, "cavity_steps": 200, "output_every": 50,
 # the JAX package's projection chain gives 3.2163-3.2233 / 0.970 / 0.3000
 DFG_GUARDS = {"cd_max": (3.15, 3.30), "cl_max": (0.90, 1.05),
               "strouhal": (0.285, 0.315)}
-H_DFG = 4.1
-
-
-class DFGBenchmark2D2Projection(InstationaryProblem):
-    """DFG 2D-2 on the projection path: the port's mirror of
-    demo/dfg_benchmark_projection.py's class (steady parabolic inflow,
-    Re = 100, the reaction force on the cylinder kept on the device every
-    step and read once at the end)."""
-
-    def __init__(self, main_dir=None, end_time=80.0, n_max_steps=16000,
-                 resolution=1.8, dt=0.005, print_every=200, **kw):
-        super().__init__(main_dir, start_time=0.0, end_time=end_time,
-                         desired_start_time_step=dt,
-                         n_max_steps=n_max_steps, **kw)
-        self._problem_name = type(self).__name__
-        self._resolution = resolution
-        self._output_frequency = 0
-        self._postprocessing_frequency = 1
-        self._cfl_frequency = 200       # monitoring only (non-adaptive)
-        self._print_every = print_every
-        self.set_solver_class(ProjectionSolver)
-        self.coefficients = []
-        self._force_series = []         # device tensors, read at the end
-
-    def setup_mesh(self):
-        self._mesh, self._boundary_markers, self._boundary_marker_map = \
-            channel_with_cylinder(self._resolution)
-
-    def set_initial_conditions(self):
-        self._initial_conditions = {"velocity": (0.0, 0.0)}
-
-    def set_boundary_conditions(self):
-        def inlet_velocity(x, t=0.0):
-            s = x[:, 1] / H_DFG
-            return np.stack([6.0 * s * (1.0 - s), np.zeros(len(x))], axis=1)
-
-        bm = self._boundary_marker_map
-        self._bcs = ((VelocityBCType.function, bm["inlet"], inlet_velocity),
-                     (VelocityBCType.no_slip, bm["cylinder"], None),
-                     (VelocityBCType.no_slip, bm["upper wall"], None),
-                     (VelocityBCType.no_slip, bm["lower wall"], None),
-                     (PressureBCType.constant, bm["outlet"], 0.0))
-
-    def set_equation_coefficients(self):
-        self._coefficient_handler = EquationCoefficientHandler(Re=100.0)
-
-    def postprocess_solution(self):
-        solver = self._get_solver()
-        force = solver.boundary_reaction_force(
-            self._boundary_marker_map["cylinder"])
-        self._force_series.append((self._time_stepping.next_time, force))
-        if self._time_stepping.step_number % self._print_every == 0:
-            t, force = self._force_series[-1]
-            print(f"t={t:8.3f}  c_D={2 * float(force[0]):8.4f}  "
-                  f"c_L={2 * float(force[1]):8.4f}", flush=True)
-
-    def materialize_coefficients(self):
-        """The force series as (t, c_D, c_L) rows, in one transfer."""
-        if self._force_series:
-            forces = torch.stack([f for _, f in self._force_series])
-            forces = forces.double().cpu().numpy()
-            times = [t for t, _ in self._force_series]
-            self.coefficients += [(t, 2.0 * f[0], 2.0 * f[1])
-                                  for t, f in zip(times, forces)]
-            self._force_series = []
-        return self.coefficients
+H_DFG = dfg_benchmark_projection.H
 
 
 class CavityProblem(InstationaryProblem):
@@ -2061,8 +2033,7 @@ def phase_dfg(dev, smi, profile_dir):
         t0 = time.perf_counter()
         problem = InstrumentedDFG(
             tmp, end_time=1.0e6, resolution=PROBLEMS["dfg_res"], dt=dt,
-            print_every=PROBLEMS["dfg_print_every"], device=dev,
-            dtype=torch.float32,
+            device=dev, dtype=torch.float32,
             solver_options={"cg_rtol": SOLVER["cg_rtol"]})
         problem.set_solver_class(dfg_seeded_solver(
             PROBLEMS["dfg_seed"], os.path.join(tmp, "seed.npz")))
@@ -2210,10 +2181,11 @@ def phase_dfg_parity(dev):
 # group "newton": the stationary and monolithic solvers, f64 on the card
 # ---------------------------------------------------------------------------
 
-# newton_cavity at 96^2: cut from 128^2 (155-199 s of host-bound
-# PCD-FGMRES on an H100 at 700 W) to keep the whole script inside its
-# time limit with the multidevice group
-NEWTON = {"dfg_res": 3.0, "cavity_n": 96, "cavity_re": 100.0,
+# newton_cavity at 64^2: cut from 128^2 (155-199 s of host-bound
+# PCD-FGMRES on an H100 at 700 W) and then from 96^2 (86.7 s) to keep the
+# whole script inside its time limit with the multidevice and apps
+# groups; Ghia's centre-line minimum holds at 64^2 (-0.2080 on the CPU)
+NEWTON = {"dfg_res": 3.0, "cavity_n": 64, "cavity_re": 100.0,
           "bdf_res": 3.0, "bdf_dt": 0.005, "bdf_steps": 100,
           "bdf_seed": "benchmarks/states/dfg_2d2_state_mono_res3_sym.npz",
           "parity_n": 12, "parity_steps": 5,
@@ -2401,25 +2373,13 @@ def phase_newton_dfg(dev, smi, profile_dir):
     return launches
 
 
-class NewtonCavity(StationaryProblem):
-    """demo/cavity_flow.py's problem (unit lid, no-slip walls) at ``n``^2
+class NewtonCavity(cavity_flow.CavityProblem):
+    """demo/cavity_flow.py's problem (the port's demo class) at ``n``^2
     cells and Reynolds number ``re``."""
 
     def __init__(self, main_dir, n, re, **kw):
-        super().__init__(main_dir, **kw)
-        self._n_points, self._re = n, re
-        self._problem_name = "Cavity"
-
-    def setup_mesh(self):
-        self._mesh, self._boundary_markers = hyper_cube(2, self._n_points)
-
-    def set_boundary_conditions(self):
-        from navierstokes_tpu_torch.mesh import HyperCubeBoundaryMarkers as M
-
-        self._bcs = ((VelocityBCType.no_slip, M.left.value, None),
-                     (VelocityBCType.no_slip, M.right.value, None),
-                     (VelocityBCType.no_slip, M.bottom.value, None),
-                     (VelocityBCType.constant, M.top.value, (1.0, 0.0)))
+        super().__init__(n, main_dir, **kw)
+        self._re = re
 
     def set_equation_coefficients(self):
         self._coefficient_handler = EquationCoefficientHandler(Re=self._re)
@@ -2543,7 +2503,7 @@ def profile_pcd_cycle(solver, smi, profile_dir):
 
 
 def phase_newton_cavity(dev, smi, profile_dir):
-    """The cavity demo as a StationaryProblem at 96^2 with the card's own
+    """The cavity demo as a StationaryProblem at 64^2 with the card's own
     linear mode: matrix-free PCD + FGMRES + AMG, no factorization."""
     n, re = NEWTON["cavity_n"], NEWTON["cavity_re"]
     cuda_band.reset_launch_counts()
@@ -2829,7 +2789,7 @@ MESH3D = {"cavity_n": MESH3D_KERNEL_N, "cavity_re": 100.0, "cavity_steps": 20,
           "kernel_steps": 20, "kernel_cg_iters": (18, 300, 10),
           "duct": (18, 6, 6), "duct_steps": 200, "shell_n": 16,
           "shell_dt": 0.025, "shell_steps": 60, "shell_guard": 1.0e-3,
-          "bfs_res": 1.0, "blasius_res": 1.0, "parity_cavity_n": 6,
+          "parity_cavity_n": 6,
           "parity_shell_n": 6, "parity_steps": 10}
 SHELL_RE = 1.0
 SHELL_RADII = (0.5, 1.0)
@@ -3144,62 +3104,20 @@ def phase_shell3d(dev, smi, profile_dir):
     return launches, state
 
 
-class BackwardFacingStep(StationaryProblem):
-    """demo/backward_facing_step.py's problem (Re 50, the parabolic inlet
-    on y in [0.5, 1], no slip on the walls, do-nothing outflow) on the
-    built-in mesh or on a mesh passed in."""
+class BackwardFacingStep(backward_facing_step.BackwardFacingStepProblem):
+    """demo/backward_facing_step.py's problem (the port's demo class) on
+    its built-in mesh or on a mesh passed in."""
 
     def __init__(self, main_dir, mesh=None, **kw):
         super().__init__(main_dir, **kw)
-        self._problem_name = "BackwardFacingStep"
         self._given_mesh = mesh
 
     def setup_mesh(self):
-        self._mesh, self._boundary_markers, self._boundary_marker_map = \
-            self._given_mesh or backward_facing_step(MESH3D["bfs_res"])
-
-    def set_boundary_conditions(self):
-        h, y0 = 0.5, 0.5
-
-        def inlet_velocity(x):
-            s = (x[:, 1] - y0) / h
-            return np.stack([6.0 * s * (1.0 - s), np.zeros(len(x))], axis=1)
-
-        bm = self._boundary_marker_map
-        self._bcs = ((VelocityBCType.function, bm["inlet"], inlet_velocity),
-                     (VelocityBCType.no_slip, bm["walls"], None))
-
-    def set_equation_coefficients(self):
-        self._coefficient_handler = EquationCoefficientHandler(Re=50.0)
-
-
-class BlasiusFlow(StationaryProblem):
-    """demo/blasius_flow.py's problem (Re 200, unit inflow, no normal flux
-    on top and bottom, the plate an internal no-slip constraint)."""
-
-    def __init__(self, main_dir, **kw):
-        super().__init__(main_dir, **kw)
-        self._problem_name = "BlasiusFlow"
-
-    def setup_mesh(self):
-        self._mesh, self._boundary_markers, self._boundary_marker_map = \
-            blasius_plate(MESH3D["blasius_res"])
-
-    def set_boundary_conditions(self):
-        bm = self._boundary_marker_map
-        self._bcs = ((VelocityBCType.function, bm["inlet"],
-                      lambda x: np.stack([np.ones(len(x)),
-                                          np.zeros(len(x))], axis=1)),
-                     (VelocityBCType.no_normal_flux, bm["bottom"], None),
-                     (VelocityBCType.no_normal_flux, bm["top"], None))
-
-    def set_equation_coefficients(self):
-        self._coefficient_handler = EquationCoefficientHandler(Re=200.0)
-
-    def set_internal_constraints(self):
-        self._internal_constraints = (
-            (VelocityBCType.no_slip, self._boundary_marker_map["plate"],
-             None),)
+        if self._given_mesh is None:
+            super().setup_mesh()
+        else:
+            self._mesh, self._boundary_markers, \
+                self._boundary_marker_map = self._given_mesh
 
 
 def solve_stationary(problem, name):
@@ -3336,8 +3254,9 @@ def phase_blasius(dev, smi):
     LU)."""
     cuda_band.reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
-    problem = BlasiusFlow(None, device=dev, dtype=torch.float64,
-                          solver_options={"linear_solver": "host_lu"})
+    problem = blasius_flow.BlasiusFlowProblem(
+        None, device=dev, dtype=torch.float64,
+        solver_options={"linear_solver": "host_lu"})
     solver, rec, seconds = solve_stationary(problem, "blasius")
     u, _ = solver.space.split(solver.solution)
     u = u.double().cpu().numpy()
@@ -3873,8 +3792,399 @@ def phase_multidevice_parity(dev, smi):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# group "apps": the native helper and the shipped applications on the card
+# ---------------------------------------------------------------------------
+
+# demo_gravity and demo_taylor_green solve with host LU / frozen LU, as
+# bfs, blasius and bdf_dfg do: the card's default pcd stalls on the open
+# cube (the JAX package's PCD-FGMRES too; no end in 1,190 s at n = 50 on
+# an H100 at 700 W) and took 9.2 s per step of the Taylor-Green demo
+APPS = {"native_n": 48, "gravity_n": 50, "gravity_linear_solver": "host_lu",
+        "taylor_green_linear_solver": "frozen_lu",
+        "box_tol": 1e-3, "study_n": 128, "study_levels": 6,
+        "study_banded_rtol": 1e-12, "study_bdf_n": 32, "study_bdf_levels": 4,
+        "study_bdf_linear_solver": "frozen_lu", "study_tol": 1e-6,
+        "study_orders": (1.8, 2.4), "reference_tol": 1e-8}
+# The JAX package's values on the CPU in float64 at the same settings (its
+# default linear solvers there: SuperLU on the host), printed by
+#   JAX_PLATFORMS=cpu python - <<'PY'
+#   import importlib.util, tempfile, jax, numpy as np
+#   jax.config.update("jax_enable_x64", True)
+#   from navierstokes_tpu.mesh.core import extract_all_boundary_markers
+#   from navierstokes_tpu.solvers import ProjectionSolver
+#   def load(path):
+#       spec = importlib.util.spec_from_file_location(path[:-3], path)
+#       mod = importlib.util.module_from_spec(spec)
+#       spec.loader.exec_module(mod)
+#       return mod
+#   g = load("demo/gravity_driven_flow.py")
+#   t = load("demo/taylor_green_vortex.py")
+#   c = load("convergence_test/taylor_green_vortex.py")
+#   for n in (50, 32):
+#       with tempfile.TemporaryDirectory() as d:
+#           pr = g.GravityDrivenFlowProblem(n, d)
+#           pr._write_output = False
+#           pr.solve_problem()
+#       s, u = pr._get_solver(), pr._get_velocity()
+#       flux = 0.0
+#       for b in extract_all_boundary_markers(pr._mesh,
+#                                             pr._boundary_markers):
+#           f = pr._boundary_markers.ids_with_value(b)
+#           if len(f):
+#               flux += float(s.operator.boundary_velocity_flux(
+#                   s.operator.facet_batch_device(s.space.facet_batch(f)),
+#                   u))
+#       print(n, np.linalg.norm(u), np.abs(u).max(), flux)
+#   with tempfile.TemporaryDirectory() as d:
+#       pr = t.TaylorGreenVortex(d)
+#       pr._write_output = False
+#       pr.solve_problem()
+#   s = pr._get_solver()
+#   u, _ = s.space.split(s.solution)
+#   print(s.operator.l2_error_velocity(
+#       u, lambda x: c.exact_velocity(x, pr._time_stepping.current_time)))
+#   class Banded(ProjectionSolver):
+#       def __init__(self, *a, **k):
+#           super().__init__(*a, **k, prefer_spectral=False, cg_rtol=1e-12)
+#   print(c.main(128, 6, "projection")[1], c.main(32, 4, "bdf")[1])
+#   for i in range(6):
+#       pr = c.TaylorGreenVortex(0.5 ** i, 128, Banded)
+#       pr.solve_problem()
+#       print(pr.compute_errors()[0])
+#   PY
+APPS_REF = {
+    "gravity": {50: {"u_norm": 0.5550938957668103,
+                     "u_max": 0.041453817126450535,
+                     "flux": -9.974659986866641e-18},
+                32: {"u_norm": 0.39478879704430647,
+                     "u_max": 0.04602552768205622,
+                     "flux": 3.903127820947816e-18}},
+    "taylor_green_l2_u": 5.142190302237536e-05,
+    "study": {"spectral": [0.0740716968360464, 0.0274830918651524,
+                           0.007373337225034709, 0.0016972762187026627,
+                           0.00040505756325691475, 9.935121525005588e-05],
+              "banded": [0.07407169683555731, 0.027483091864559425,
+                         0.0073733461416853495, 0.0016972767476142363,
+                         0.00040505757303153087, 9.935121460160213e-05],
+              "bdf": [0.07406490563931953, 0.027460008553494366,
+                      0.007211326008703994, 0.0016478869459417098]}}
+
+
+class Clocked:
+    """Mixin for an InstationaryProblem: the host clock over its time loop,
+    from the start of its first step (synchronised)."""
+
+    def _set_next_step_size(self):
+        if not hasattr(self, "_loop_t0"):
+            torch.cuda.synchronize()
+            self._loop_t0 = time.perf_counter()
+        super()._set_next_step_size()
+
+    def loop_seconds(self):
+        torch.cuda.synchronize()
+        return time.perf_counter() - self._loop_t0
+
+
+class ClockedTaylorGreen(Clocked, tg_demo.TaylorGreenVortex):
+    pass
+
+
+class ClockedPeriodicBox(Clocked, periodic_box_3d.PeriodicBox3D):
+    pass
+
+
+def per_step(launches, n_steps):
+    return {k: v / max(n_steps, 1) for k, v in launches.items()}
+
+
+def ab_times(fn_a, fn_b, rounds=2):
+    """Host seconds of ``fn_a`` and ``fn_b`` in the order a, b, b, a per
+    round: the medians and each one's last result."""
+    times, outs = {"a": [], "b": []}, {}
+    for _ in range(rounds):
+        for who, fn in (("a", fn_a), ("b", fn_b), ("b", fn_b),
+                        ("a", fn_a)):
+            t0 = time.perf_counter()
+            outs[who] = fn()
+            times[who].append(time.perf_counter() - t0)
+    return (statistics.median(times["a"]), statistics.median(times["b"]),
+            outs["a"], outs["b"])
+
+
+def phase_native(smi):
+    """The g++ mesh helper: its build from the repository's source, and
+    on the 48^3 box's topology unique_rows (facets, edges) and
+    build_transpose (the P2 velocity table) against the NumPy versions it
+    replaces: array-equal, both timed on this host."""
+    from navierstokes_tpu_torch.mesh import core as mesh_core
+    from navierstokes_tpu_torch.parallel import sharded
+
+    # a fresh build of the repository's source (the process's own build
+    # happened at its first mesh), timed; then the library in use must
+    # be the one built from the source's hash
+    build_dir = native.BUILD_DIR
+    with tempfile.TemporaryDirectory() as tmp:
+        native.BUILD_DIR = pathlib.Path(tmp)
+        try:
+            t0 = time.perf_counter()
+            fresh = native.build_library()
+            build_s = time.perf_counter() - t0
+        finally:
+            native.BUILD_DIR = build_dir
+    path = native.build_library()
+    lib = native.get_library()
+    if lib is None or lib._name != str(path) \
+            or path.name != fresh.name:
+        raise AssertionError(f"native: the library loaded ({lib}) is not "
+                             f"the build of {native.SOURCE} ({path})")
+    n = APPS["native_n"]
+    t0 = time.perf_counter()
+    mesh, _ = hyper_cube(3, n)
+    mesh_s = time.perf_counter() - t0
+    nv = mesh.cells.shape[1]
+    facets = np.sort(mesh.cells[:, mesh_core._facet_local_indices(nv)]
+                     .reshape(-1, 3), axis=1)
+    edges = np.sort(mesh.cells[:, mesh_core._edge_local_indices(nv)]
+                    .reshape(-1, 2), axis=1)
+    flat = np.concatenate([mesh.cells, mesh.n_vertices + mesh.cell_edges],
+                          axis=1).astype(np.int32).ravel()
+    n_nodes = mesh.n_vertices + len(mesh.edges)
+    cases = {
+        "unique_rows_facets": (native.unique_rows, mesh_core.unique_rows,
+                               (facets,)),
+        "unique_rows_edges": (native.unique_rows, mesh_core.unique_rows,
+                              (edges,)),
+        "build_transpose_velocity": (native.build_transpose,
+                                     sharded._numpy_scatter_transpose,
+                                     (flat, n_nodes))}
+    rows, bad = {}, []
+    for name, (fast, plain, args) in cases.items():
+        numpy_s, native_s, want, got = ab_times(lambda: plain(*args),
+                                                lambda: fast(*args))
+        equal = all(np.array_equal(a, b)
+                    and np.asarray(a).dtype == np.asarray(b).dtype
+                    for a, b in zip(got, want))
+        rows[name] = {"rows": int(len(args[0])), "native_s": native_s,
+                      "numpy_s": numpy_s, "speedup": numpy_s / native_s,
+                      "equal": bool(equal)}
+        if not equal:
+            bad.append(name)
+    emit({"phase": "native",
+          "config": f"hyper_cube(3, {n}) (Kuhn cells): its facet and edge "
+                    "rows and the ELL table of its P2 velocity nodes "
+                    "(vertices, then edges); host medians of 4 timed calls "
+                    "each, in the order numpy, native, native, numpy",
+          "library": os.path.relpath(path), "build_seconds": build_s,
+          "compiler": native._compiler(), "flags": list(native.CXX_FLAGS),
+          "mesh_seconds": mesh_s, "n_cells": mesh.n_cells,
+          "cases": rows, "no_slower": {k: r["native_s"] <= r["numpy_s"]
+                                      for k, r in rows.items()},
+          "nvidia_smi": smi})
+    if bad:
+        raise AssertionError(f"native: arrays differ from the NumPy "
+                             f"versions in {bad}")
+
+
+def relative(got, want):
+    return abs(got - want) / abs(want)
+
+
+def phase_demo_gravity(dev, smi):
+    """demo/gravity_driven_flow.py (the port's demo class) at the shipped
+    n = 50, f64, host LU, its output into a temporary directory."""
+    n = APPS["gravity_n"]
+    cuda_band.reset_launch_counts()
+    with tempfile.TemporaryDirectory() as tmp:
+        problem = gravity_driven_flow.GravityDrivenFlowProblem(
+            n, tmp, device=dev, dtype=torch.float64,
+            solver_options={"linear_solver": APPS["gravity_linear_solver"]})
+        t0 = time.perf_counter()
+        lines = run_quietly(problem)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        files = output_files(os.path.join(tmp, "results"))
+    launches = dict(cuda_band.LAUNCHES)
+    solver = problem._get_solver()
+    solves = [r for r in solver.monitor.records
+              if r["kind"] == "nonlinear_solve"]
+    rec = dict(solves[0]) if solves else {}
+    iters = rec.get("picard_iterations", 0) + rec.get("newton_iterations", 0)
+    u = problem._get_velocity().double().cpu().numpy()
+    ref = APPS_REF["gravity"][n]
+    errs = {"u_norm": relative(float(np.linalg.norm(u)), ref["u_norm"]),
+            "u_max": relative(float(np.abs(u).max()), ref["u_max"])}
+    flux = problem.mass_flux
+    emit({"phase": "demo_gravity",
+          "config": f"demo/gravity_driven_flow.py, open cube n = {n}, Re "
+                    "200, Fr 10, f64, linear solver "
+                    f"{solver._resolved_linear_mode()}",
+          "dofs": solver.space.n_dofs,
+          "linear_mode": solver._resolved_linear_mode(),
+          "nonlinear_solves": len(solves),
+          "picard_iterations": rec.get("picard_iterations"),
+          "newton_iterations": rec.get("newton_iterations"),
+          "residual": rec.get("residual"), "mass_flux": flux,
+          "mass_flux_jax_cpu": ref["flux"], "u_rel_err_jax_cpu": errs,
+          "seconds": seconds, "stdout_lines": lines, "output": files,
+          "launches": launches,
+          "launches_per_linearized_step": per_step(launches, iters),
+          "nvidia_smi": smi})
+    bad = [len(solves) != 1, not rec.get("residual", 1.0) <= 1e-10,
+           not max(errs.values()) <= APPS["reference_tol"],
+           not abs(flux - ref["flux"]) <= 1e-9]
+    if any(bad):
+        raise AssertionError(f"demo_gravity guards failed: {bad} (one "
+                             "nonlinear solve, ||F||, u, mass flux)")
+    return launches
+
+
+def phase_demo_taylor_green(dev, smi):
+    """demo/taylor_green_vortex.py (the port's demo class: ImplicitBDFSolver
+    on the 32^2 torus, 100 steps to t = 1), f64, its output every 10 steps
+    into a temporary directory; L2(u) against the analytic decay."""
+    options = {"linear_solver": APPS["taylor_green_linear_solver"]}
+    cuda_band.reset_launch_counts()
+    with tempfile.TemporaryDirectory() as tmp:
+        problem = ClockedTaylorGreen(tmp, device=dev, dtype=torch.float64,
+                                     solver_options=options)
+        t0 = time.perf_counter()
+        lines = run_quietly(problem)
+        loop_s = problem.loop_seconds()
+        seconds = time.perf_counter() - t0
+        files = output_files(os.path.join(tmp, "results"))
+    launches = dict(cuda_band.LAUNCHES)
+    solver, ts = problem._get_solver(), problem._time_stepping
+    u, _ = solver.space.split(solver.solution)
+    t = ts.current_time
+    l2 = solver.operator.l2_error_velocity(
+        u, lambda x: tg_study.exact_velocity(x, t))
+    ref = APPS_REF["taylor_green_l2_u"]
+    err = relative(l2, ref)
+    newton = [r["iterations"] for r in solver.monitor.records
+              if r["kind"] == "nonlinear_solve"]
+    emit({"phase": "demo_taylor_green",
+          "config": "demo/taylor_green_vortex.py, 32^2 torus, Re 100, dt "
+                    "0.01, ImplicitBDFSolver, f64, linear solver "
+                    f"{solver._resolved_linear_mode()}",
+          "dofs": solver.space.n_dofs, "steps": ts.step_number, "t": t,
+          "ms_per_step": 1e3 * loop_s / max(ts.step_number, 1),
+          "newton_iterations_per_step": float(np.mean(newton)),
+          "l2_u_error": l2, "l2_u_error_jax_cpu": ref,
+          "rel_err_jax_cpu": err, "seconds": seconds,
+          "stdout_lines": lines, "output": files, "launches": launches,
+          "launches_per_step": per_step(launches, ts.step_number),
+          "nvidia_smi": smi})
+    if ts.step_number != 100 or not abs(t - 1.0) <= 1e-12 \
+            or not err <= APPS["reference_tol"]:
+        raise AssertionError(f"demo_taylor_green: {ts.step_number} steps "
+                             f"to t = {t}, L2(u) {l2} against the JAX "
+                             f"package's {ref}")
+    return launches
+
+
+def phase_demo_periodic_box_3d(dev, smi):
+    """demo/periodic_box_3d.py (the port's demo class) at its shipped 16^3
+    and 50 steps, f32, on the spectral step: max|u| against the analytic
+    decay of the shear wave."""
+    cuda_band.reset_launch_counts()
+    with tempfile.TemporaryDirectory() as tmp:
+        problem = ClockedPeriodicBox(tmp, device=dev, dtype=torch.float32,
+                                     solver_options={"cg_rtol": 1e-6})
+        t0 = time.perf_counter()
+        lines = run_quietly(problem)
+        loop_s = problem.loop_seconds()
+        seconds = time.perf_counter() - t0
+    launches = dict(cuda_band.LAUNCHES)
+    solver, ts = problem._get_solver(), problem._time_stepping
+    amp, expected = periodic_box_3d.amplitude(problem)
+    err = abs(amp - expected) / expected
+    emit({"phase": "demo_periodic_box_3d",
+          "config": "demo/periodic_box_3d.py, shear wave on the 16^3 "
+                    "periodic Kuhn box, Re 100, dt 0.01, ProjectionSolver, "
+                    "f32",
+          "dofs": solver.space.n_dofs, "step_kind": solver._step_kind,
+          "steps": ts.step_number, "t": ts.current_time,
+          "ms_per_step": 1e3 * loop_s / max(ts.step_number, 1),
+          "max_u": amp, "analytic": expected, "rel_err": err,
+          "seconds": seconds, "stdout_lines": lines, "launches": launches,
+          "launches_per_step": per_step(launches, ts.step_number),
+          "nvidia_smi": smi})
+    if solver._step_kind != "spectral" or ts.step_number != 50 \
+            or not err < APPS["box_tol"]:
+        raise AssertionError(f"demo_periodic_box_3d: step_kind "
+                             f"{solver._step_kind!r}, {ts.step_number} "
+                             f"steps, max|u| rel. error {err}")
+    return launches
+
+
+def run_study(dev, n, levels, solver, options):
+    """convergence_test/taylor_green_vortex.py's main (the port's) in f64,
+    quietly, in a temporary directory (it may write its plot there):
+    ``(dts, u_errors, p_errors, seconds, steps, launches)``."""
+    cuda_band.reset_launch_counts()
+    with tempfile.TemporaryDirectory() as tmp, contextlib.chdir(tmp), \
+            contextlib.redirect_stdout(io.StringIO()):
+        t0 = time.perf_counter()
+        dts, eu, ep = tg_study.main(n, levels, solver, device=dev,
+                                    dtype=torch.float64,
+                                    solver_options=options)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    steps = sum(round(1.0 / dt) for dt in dts)
+    return dts, eu, ep, seconds, steps, dict(cuda_band.LAUNCHES)
+
+
+def phase_convergence(dev, smi):
+    """The convergence study (the port's) in f64: projection mode at 128^2
+    over 6 levels on the spectral step and on the banded step (a shipped
+    application through circulant_apply), then BDF mode at 32^2 over 4
+    levels; per level dt, L2(u), L2(p), the observed orders, each run's
+    launches per step.  Returns the launch counts by run."""
+    n, levels = APPS["study_n"], APPS["study_levels"]
+    bdf = {"linear_solver": APPS["study_bdf_linear_solver"]}
+    runs = (("spectral", n, levels, "projection", None),
+            ("banded", n, levels, "projection",
+             {"prefer_spectral": False,
+              "cg_rtol": APPS["study_banded_rtol"]}),
+            ("bdf", APPS["study_bdf_n"], APPS["study_bdf_levels"], "bdf",
+             bdf))
+    out, by_run, bad = {}, {}, []
+    lo, hi = APPS["study_orders"]
+    for name, n_pts, n_lev, solver, options in runs:
+        dts, eu, ep, seconds, steps, launches = run_study(
+            dev, n_pts, n_lev, solver, options)
+        orders = np.diff(-np.log2(eu)).tolist()
+        ref = APPS_REF["study"][name]
+        errs = [abs(a - b) / b for a, b in zip(eu, ref)]
+        by_run[name] = launches
+        out[name] = {"n_points": n_pts, "solver": solver,
+                     "solver_options": options, "dt": dts, "l2_u": eu,
+                     "l2_p": ep, "orders_u": orders,
+                     "l2_u_jax_cpu": ref, "rel_err_jax_cpu": errs,
+                     "steps": steps, "seconds": seconds,
+                     "launches": launches,
+                     "launches_per_step": per_step(launches, steps)}
+        # the first pair (dt 1 -> 0.5) is outside the asymptotic range
+        # (1.43 in the JAX package too); 128^2 and 32^2 reach no spatial
+        # floor by dt 1/32 and 1/8
+        if not (max(errs) <= APPS["study_tol"]
+                and all(lo <= o <= hi for o in orders[1:])):
+            bad.append(name)
+    emit({"phase": "convergence",
+          "config": "convergence_test/taylor_green_vortex.py, Re 100, "
+                    "dt = 2^-i to t = 1, f64: projection mode (spectral, "
+                    "and banded with prefer_spectral False), bdf mode",
+          "runs": out, "nvidia_smi": smi})
+    if by_run["banded"]["circulant_apply"] <= 0:
+        bad.append("banded run launched no circulant_apply")
+    if bad:
+        raise AssertionError(f"convergence guards failed: {bad}")
+    return by_run
+
+
 GROUPS = ("kernels", "structured", "solver", "problems", "newton", "mesh3d",
-          "multidevice")
+          "multidevice", "apps")
 
 
 def main():
@@ -3963,6 +4273,16 @@ def main():
         by_path["multidevice_parity"] = phase_multidevice_parity(dev, smi)
         emit({"phase": "multidevice",
               "seconds": time.perf_counter() - t_group})
+    if "apps" in groups:
+        t_group = time.perf_counter()
+        phase_native(smi)
+        by_path["demo_gravity"] = phase_demo_gravity(dev, smi)
+        by_path["demo_taylor_green"] = phase_demo_taylor_green(dev, smi)
+        by_path["demo_periodic_box_3d"] = phase_demo_periodic_box_3d(dev,
+                                                                     smi)
+        for name, counts in phase_convergence(dev, smi).items():
+            by_path[f"convergence_{name}"] = counts
+        emit({"phase": "apps", "seconds": time.perf_counter() - t_group})
 
     emit({"phase": "total", "seconds": time.perf_counter() - t_start,
           "groups": sorted(groups)})
@@ -3981,10 +4301,14 @@ def main():
         # sharded spectral step and the sharded Newton stack apply none
         # (multidevice_parity prints the launches of its checkpoint
         # crossing's one-device banded leg apart)
+        # the apps group: the Newton and BDF demos and the spectral box
+        # apply no band operator; the convergence study's banded run must
         newton = ("newton_dfg", "newton_cavity", "bdf_dfg", "newton_parity",
                   "shell3d", "bfs", "blasius", "halo_shell",
                   "spectral_sharded", "stationary_sharded",
-                  "multidevice_parity")
+                  "multidevice_parity", "demo_gravity", "demo_taylor_green",
+                  "demo_periodic_box_3d", "convergence_spectral",
+                  "convergence_bdf")
         on_path = {"circulant_apply": [p for p in by_path
                                        if p != "dfg" and p not in newton],
                    "circulant_pcg": ["main", "solver_cavity_kernels",

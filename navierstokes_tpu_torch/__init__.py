@@ -8,9 +8,10 @@ time-stepping bookkeeping, the product solver API for transient flow
 (``ProjectionSolver`` with boundary conditions, coefficients, initial
 conditions and checkpoints), the application layer, and the Newton and
 monolithic stack (stationary Picard->Newton, monolithic BDF, theta, IMEX
-and IPCS solvers with direct and PCD-FGMRES linear solves), and the
+and IPCS solvers with direct and PCD-FGMRES linear solves), the
 multi-device layer (the halo projection step, the slab-sharded spectral
-step, the cell-sharded Newton stack) over shards of one card or several:
+step, the cell-sharded Newton stack) over shards of one card or several,
+the g++ mesh helper and the shipped applications:
 
     mesh/        ``hyper_cube`` / ``hyper_rectangle`` (2D and 3D), the
                  mesh topology and its facet geometry
@@ -44,6 +45,11 @@ step, the cell-sharded Newton stack) over shards of one card or several:
     parallel/    the multi-device layer in one process: a mesh of shard
                  devices and its collectives, cell-sharded and
                  halo-exchange operators, the sharded Newton operator
+    native/      the g++ host helper (row deduplication, ELL transpose
+                 tables), built at first use
+    demo/        the repository's demo scripts as modules with a ``main``
+                 (``python -m navierstokes_tpu_torch.demo.cavity_flow``)
+    convergence_test/  the Taylor-Green temporal convergence study
     setups.py    the benchmark's initial states (2D Taylor-Green vortex,
                  3D shear wave) and the lid-driven cavity and channel
 

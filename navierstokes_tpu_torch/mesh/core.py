@@ -4,9 +4,10 @@ Host-side NumPy, built once.  Conventions as in the JAX package: cells are
 positively oriented, local facet ``i`` is opposite local vertex ``i``, and
 facet markers live in a :class:`FacetMarkers` companion object.
 
-Row deduplication is NumPy's ``unique`` on packed row keys (the results
-of the NumPy branch of the JAX package's ``native.unique_rows``); the g++
-helper is not ported.
+Facet and edge rows are deduplicated by the g++ helper
+(``navierstokes_tpu_torch.native.unique_rows``), as in the JAX package;
+:func:`unique_rows` here is its plain NumPy version (packed row keys),
+which ``NS_TPU_NO_NATIVE=1`` selects.
 """
 
 from __future__ import annotations
@@ -15,6 +16,8 @@ import itertools
 from dataclasses import dataclass
 
 import numpy as np
+
+from navierstokes_tpu_torch import native
 
 
 def _facet_local_indices(n_cell_vertices: int) -> np.ndarray:
@@ -113,8 +116,8 @@ class SimplexMesh:
         # facets: unique codim-1 entities
         loc = _facet_local_indices(nv)
         all_facets = self.cells[:, loc].reshape(nc * nv, dim)
-        self.facets, inverse, counts = unique_rows(np.sort(all_facets,
-                                                           axis=1))
+        self.facets, inverse, counts = native.unique_rows(
+            np.sort(all_facets, axis=1))
         inverse = inverse.reshape(nc, nv)
         self.cell_facets = inverse.astype(np.int32)
         self.facet_counts = counts.astype(np.int32)
@@ -134,7 +137,7 @@ class SimplexMesh:
             eloc = _edge_local_indices(nv)
             all_edges = np.sort(
                 self.cells[:, eloc].reshape(nc * len(eloc), 2), axis=1)
-            self.edges, einv, _ = unique_rows(all_edges)
+            self.edges, einv, _ = native.unique_rows(all_edges)
             self.cell_edges = einv.reshape(nc, len(eloc)).astype(np.int32)
 
         # geometry

@@ -26,7 +26,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from navierstokes_tpu_torch import config
+from navierstokes_tpu_torch import config, native
 from navierstokes_tpu_torch.parallel.comm import (  # noqa: F401
     DeviceMesh, as_mesh, device_mesh, psum)
 from navierstokes_tpu_torch.utils.segment import padded_row_sum, take_rows
@@ -54,10 +54,12 @@ def build_scatter_transpose(cell_nodes: np.ndarray, n_nodes: int,
 
     Returns (table (n_nodes, K) int32, K).  Pad entries point one past the
     last flat slot; callers append a zero row to the flattened per-cell
-    values before gathering.
+    values before gathering.  Built by the g++ helper's counting sort
+    (``navierstokes_tpu_torch.native``); :func:`_numpy_scatter_transpose`
+    is its plain version (``NS_TPU_NO_NATIVE=1``).
     """
     flat_nodes = np.asarray(cell_nodes, dtype=np.int32).ravel()
-    return _numpy_scatter_transpose(flat_nodes, n_nodes, k_pad)
+    return native.build_transpose(flat_nodes, n_nodes, k_pad)
 
 
 def build_scatter_transpose_range(cell_nodes: np.ndarray, lo: int,

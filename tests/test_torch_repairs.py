@@ -271,6 +271,17 @@ def test_new_modules_and_chip_smoke_import_no_jax():
             "import navierstokes_tpu_torch.parallel.sharded\n"
             "import navierstokes_tpu_torch.parallel.sharded_mixed\n"
             "import navierstokes_tpu_torch.solvers.halo_step\n"
+            "import navierstokes_tpu_torch.native\n"
+            "import navierstokes_tpu_torch.demo.cavity_flow\n"
+            "import navierstokes_tpu_torch.demo.backward_facing_step\n"
+            "import navierstokes_tpu_torch.demo.blasius_flow\n"
+            "import navierstokes_tpu_torch.demo.gravity_driven_flow\n"
+            "import navierstokes_tpu_torch.demo.taylor_green_vortex\n"
+            "import navierstokes_tpu_torch.demo.dfg_benchmark\n"
+            "import navierstokes_tpu_torch.demo.dfg_benchmark_projection\n"
+            "import navierstokes_tpu_torch.demo.periodic_box_3d\n"
+            "import navierstokes_tpu_torch.convergence_test."
+            "taylor_green_vortex\n"
             "assert not any(m == 'jax' or m.startswith('jax.') "
             "for m in sys.modules), 'jax imported'\n"
             "assert 'navierstokes_tpu' not in sys.modules\n")
