@@ -20,12 +20,17 @@ non-zero):
                route B, masked and not, the mean-free Poisson K = 15 on
                route A).
 4. main     -- the generic banded SBDF-2 projection step on the periodic
-               Taylor-Green vortex at 128^2, f32, configured as bench.py's
-               generic path: Re = 100, dt = 1e-3, cg_iters = (10, 60, 6),
-               one BDF-1 step and 3 BDF-2 warm-up steps, then 200 timed
-               BDF-2 steps.  Requires finite values, amp_rel_err < 0.05 and
-               launches of both kernels; prints DoF-steps/s, the residual
-               triple of one extra step and the launch counts.
+               Taylor-Green vortex at 128^2, f32, through the port's bench
+               module (navierstokes_tpu_torch/bench.py, bench.py's generic
+               path: Re = 100, dt = 1e-3, cg_iters = (10, 60, 6), one BDF-1
+               and 3 BDF-2 warm-up steps), in its dispatch loop (200 timed
+               eager steps) and then its scan loop (CUDA graphs of 50
+               steps: one untimed chunk after the capture, 3 timed).
+               Requires, in each loop, finite values, amp_rel_err < 0.05
+               and launches of both kernels, and 3 launches of each per
+               step in the captured chunk; prints per loop DoF-steps/s, the
+               residual triple of one extra step, the launch counts and,
+               for scan, the capture seconds and the launches captured.
 5. timing   -- at the main path's f32 shapes, for the apply and each PCG
                sub-solve: the device-only time (torch.profiler kernel time
                over 20 launches), the event-timed wrapper call (median of
@@ -36,15 +41,24 @@ non-zero):
 6. parity   -- 10 steps at 128^2, f64, on the card (kernels) and on the CPU
                (plain versions) from the same state; u and p must agree to
                1e-9 relative.
+6a. graph   -- one 50-step chunk as a CUDA graph (the scan loop's
+               ChunkLoop) against the same 50 eager steps, from the
+               warmed-up state, of both paths at 128^2 in f32 and f64: bit
+               for bit (or, if two eager chunks differ, within their
+               spread); the banded f32 graph replayed again, equal, after
+               route B's scratch cache was emptied by 40 other plans; and
+               a step with cg_rtol (a host read of ||r||) refused.
+6b. bench   -- navierstokes_tpu_torch.bench.main() at its defaults
+               (128^2, scan, f32): its JSON line; every path non-zero.
 7. structured2d -- the structured spectral projection step (bench.py's
-               primary path, one eager launch sequence per step) on the
-               Taylor-Green vortex at 128^2, f32, Re = 100, dt = 1e-3: one
-               BDF-1 and 3 BDF-2 warm-up steps, then 200 timed BDF-2
-               steps.  Requires finite values and amp_rel_err < 0.05;
-               prints DoF-steps/s, the host setup seconds and the peak
-               device memory.
-8. structured3d -- the same step on the triply periodic shear wave at
-               48^3 (2.76 M DoFs), f32: 4 warm-up and 50 timed steps.
+               primary path) on the Taylor-Green vortex at 128^2, f32,
+               through the bench module as in phase 4: 200 eager steps,
+               then the scan loop (4 chunks of 50).  Requires finite
+               values and amp_rel_err < 0.05 in each loop; prints
+               DoF-steps/s, the host setup seconds and the peak device
+               memory per loop.
+8. structured3d -- the same on the triply periodic shear wave at 48^3
+               (2.76 M DoFs), f32: 50 eager steps, then 2 chunks of 50.
 9. structured_timing -- at both shapes, CUDA-event medians of one
                convection call, fwd_u / inv_u (MatmulDFT) beside
                torch.fft.fftn / ifftn over the same axes of the same class
@@ -242,8 +256,10 @@ non-zero):
                False, cg_rtol 1e-12: circulant_apply must launch), then
                bdf mode at 32^2 over 4 levels; every L2(u) within 1e-6 of
                the JAX package's CPU value and the observed orders past
-               the first in [1.8, 2.4].  Every apps phase prints its
-               launches per step of both kernels.
+               the first in [1.8, 2.4]; the spectral run also on this
+               machine's CPU, every L2(u) of the card within 1e-10 of it.
+               Every apps phase prints its launches per step of both
+               kernels.
 38. the total seconds, the ``kernels`` line, then the card's nvidia-smi
    line, then the last line ``{"ok": true, "device": {...}}``.
 
@@ -279,9 +295,10 @@ import types
 import numpy as np
 import scipy
 import torch
+from torch.utils import _pytree as pytree
 from torch.utils._python_dispatch import TorchDispatchMode
 
-from navierstokes_tpu_torch import native
+from navierstokes_tpu_torch import bench, native
 from navierstokes_tpu_torch.assembly import cuda_band
 from navierstokes_tpu_torch.assembly.fastop import (FastTaylorHood,
                                                     combine_circulant,
@@ -325,25 +342,23 @@ from navierstokes_tpu_torch.structured import (PeriodicStructuredTH,
                                                build_spectral_projection_step)
 from navierstokes_tpu_torch.structured.spectral import _cmatmul
 from navierstokes_tpu_torch.timestepping import BDFTimeStepping
+from navierstokes_tpu_torch.utils.graph import CaptureError, ChunkLoop
 
 RE = 100.0
 DT = 1.0e-3
 N_POINTS = 128
 CG_ITERS = (10, 60, 6)
 N_WARMUP = 4
-N_STEPS = 200
 N_PARITY = 10
 ALPHAS = ((1.0, -1.0, 0.0), (1.5, -2.0, 0.5))
 ETAS = ((1.0, 0.0), (2.0, -1.0))
 RUNS = 30
 PROFILE_LAUNCHES = 20
 # the structured spectral path: bench.py's sizes (NS_BENCH_DIM=2 / 3), the
-# decay-rate factor of the analytic solution, and the parity grid sizes
+# timed steps and the parity grid sizes
 STRUCTURED = {
-    "structured2d": {"dim": 2, "n": 128, "steps": 200, "rate": 2.0,
-                     "n_parity": 128},
-    "structured3d": {"dim": 3, "n": 48, "steps": 50, "rate": 1.0,
-                     "n_parity": 16},
+    "structured2d": {"dim": 2, "n": 128, "steps": 200, "n_parity": 128},
+    "structured3d": {"dim": 3, "n": 48, "steps": 50, "n_parity": 16},
 }
 N_BUSY = 10
 # the solver-API phases: the cavity of benchmarks/cavity_re1000.py (its
@@ -968,43 +983,59 @@ def io_per_step(advance, n=None):
     return io_counts(prof.key_averages(), n)
 
 
+def bench_row(result, n_dofs, report):
+    """One loop's line of a bench path: ``result`` as the path functions
+    of navierstokes_tpu_torch/bench.py return it, ``report`` the scan
+    loop's capture seconds, captured launches and replays."""
+    elapsed, n_timed, finite, quality, _ = result
+    return {"steps_timed": n_timed, "seconds": elapsed,
+            "ms_per_step": 1e3 * elapsed / n_timed,
+            "dof_steps_per_s": n_timed * n_dofs / elapsed,
+            "finite": finite, **quality, **report}
+
+
+def check_bench_row(name, loop, row):
+    if not row["finite"]:
+        raise AssertionError(f"{name} ({loop} loop) produced non-finite "
+                             "values")
+    if not row["amp_rel_err"] < 0.05:
+        raise AssertionError(f"{name} ({loop} loop): amp_rel_err "
+                             f"{row['amp_rel_err']} >= 0.05")
+
+
 def phase_main(st, smi, profile_dir):
-    """The main path; returns the launch counts of its run and its ms per
+    """The main path: bench.py's generic path through the port's bench
+    module (navierstokes_tpu_torch/bench.py), in its dispatch loop and
+    then its scan loop (CUDA graphs of bench.CHUNK steps).  Returns the
+    launch counts of each loop's run and the dispatch loop's ms per
     step."""
+    loops, launches = {}, {}
+    for loop in ("dispatch", "scan"):
+        report = {}
+        cuda_band.reset_launch_counts()
+        result = bench.bench_generic(st.space, st.u0, st.p0, loop=loop,
+                                     device=st.dev, report=report)
+        launches[loop] = dict(cuda_band.LAUNCHES)
+        loops[loop] = dict(bench_row(result, st.space.n_dofs, report),
+                           launches=launches[loop])
+        if loop == "dispatch":
+            state = result[4]
+    emit({"phase": "main", "config": f"taylor-green {N_POINTS}^2 f32, "
+                                     "bench.bench_generic",
+          "n_dofs": st.space.n_dofs, "chunk": bench.CHUNK, "loops": loops,
+          "nvidia_smi": smi})
+    for loop, row in loops.items():
+        check_bench_row("main", loop, row)
+        for name, count in launches[loop].items():
+            if count <= 0:
+                raise AssertionError(f"{name} was not launched by the main "
+                                     f"path's {loop} loop")
+    want = {name: 3 * bench.CHUNK for name in cuda_band.LAUNCHES}
+    if loops["scan"]["captured_launches"] != want:
+        raise AssertionError(f"captured launches "
+                             f"{loops['scan']['captured_launches']}, "
+                             f"expected {want}")
     step = step_for(st.fast32.ops)
-    u, p = st.initial(torch.float32, st.dev)
-    cuda_band.reset_launch_counts()
-    state = bdf_steps(step, u, p, N_WARMUP)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(N_STEPS):
-        u_new, p_new, phi = step(*state, ALPHAS[1], ETAS[1])
-        state = (u_new, state[0], p_new, phi)
-    torch.cuda.synchronize()
-    elapsed = time.perf_counter() - t0
-    *_, res = step_for(st.fast32.ops, with_residuals=True)(
-        *state, ALPHAS[1], ETAS[1])
-    res = [float(v) for v in res.cpu()]
-    launches = dict(cuda_band.LAUNCHES)
-    u = state[0]
-    finite = bool(torch.isfinite(u).all() and torch.isfinite(state[2]).all())
-    n_total = N_WARMUP + N_STEPS
-    expected = math.exp(-2.0 * (1.0 / RE) * (2.0 * math.pi) ** 2
-                        * n_total * DT)
-    amp_err = abs(float(u.abs().max()) - expected) / expected
-    emit({"phase": "main", "config": f"taylor-green {N_POINTS}^2 f32",
-          "n_dofs": st.space.n_dofs, "steps_timed": N_STEPS,
-          "seconds": elapsed, "ms_per_step": 1e3 * elapsed / N_STEPS,
-          "dof_steps_per_s": N_STEPS * st.space.n_dofs / elapsed,
-          "amp_rel_err": amp_err, "finite": finite, "cg_residuals": res,
-          "launches": launches, "nvidia_smi": smi})
-    if not finite:
-        raise AssertionError("main path produced non-finite values")
-    if not amp_err < 0.05:
-        raise AssertionError(f"amp_rel_err {amp_err} >= 0.05")
-    for name, count in launches.items():
-        if count <= 0:
-            raise AssertionError(f"{name} was not launched by the main path")
     box = [state]
 
     def advance():
@@ -1015,7 +1046,150 @@ def phase_main(st, smi, profile_dir):
     if profile_dir:
         write_profile(advance, smi, profile_dir, "profile_main.txt",
                       f"taylor-green {N_POINTS}^2 f32, banded step")
-    return launches, 1e3 * elapsed / N_STEPS
+    return launches, loops["dispatch"]["ms_per_step"]
+
+
+def planar_advance(step):
+    """``state -> next state`` of a planar step in BDF-2, the state
+    ``(u, u_old, p, phi)``."""
+    def advance(state):
+        u, u_old, p, phi = state
+        u_new, p_new, phi_new = step(u, u_old, p, phi, ALPHAS[1], ETAS[1])
+        return (u_new, u, p_new, phi_new)
+
+    return advance
+
+
+def leaves(state):
+    return pytree.tree_leaves(state)
+
+
+def states_equal(a, b):
+    return all(torch.equal(x, y) for x, y in zip(leaves(a), leaves(b)))
+
+
+def states_diff(a, b):
+    return max(float((x.double() - y.double()).abs().max())
+               for x, y in zip(leaves(a), leaves(b)))
+
+
+def eager_chunk(advance, state, n):
+    for _ in range(n):
+        state = advance(state)
+    torch.cuda.synchronize()
+    return state
+
+
+def graph_case(advance, state0, dev):
+    """One chunk as a CUDA graph against the same chunk of eager steps
+    from ``state0`` (run twice); returns (row, loop, eager state)."""
+    n = bench.CHUNK
+    eager = eager_chunk(advance, state0, n)
+    again = eager_chunk(advance, state0, n)
+    cuda_band.reset_launch_counts()
+    loop = ChunkLoop(advance, state0, n, dev)
+    graph = loop.run()
+    torch.cuda.synchronize()
+    row = {"graph_equals_eager": states_equal(graph, eager),
+           "eager_equals_eager": states_equal(again, eager),
+           "max_abs_diff": states_diff(graph, eager),
+           "eager_spread": states_diff(again, eager),
+           "capture_seconds": loop.capture_seconds,
+           "captured_launches": loop.captured_launches}
+    return row, loop, eager
+
+
+def route_b_evictions(dev, count=40):
+    """Route-B solves of ``count`` other plans, each on a stream of its
+    own (more than the scratch cache's 32 entries), then the cache
+    cleared and the freed memory handed out again, filled with NaN."""
+    M = FastTaylorHood(taylor_green_setup(32)[0], dtype=torch.float32,
+                       device=dev).M
+    rng = np.random.default_rng(9)
+    inv = torch.ones(M.n, dtype=torch.float32, device=dev)
+    for i in range(count):
+        with torch.cuda.stream(torch.cuda.Stream()):
+            b = torch.tensor(rng.standard_normal((2, M.n)),
+                             dtype=torch.float32, device=dev)
+            cuda_band.circulant_pcg(M.band, M.offsets, b, torch.zeros_like(b),
+                                    inv, None, 1 + i, False)
+    torch.cuda.synchronize()
+    cuda_band._grid_scratch.cache_clear()
+    torch.cuda.empty_cache()
+    return torch.full((1 << 27,), float("nan"), device=dev)
+
+
+def phase_graph(st, smi):
+    """The scan loop's CUDA graphs against the eager steps at 128^2: one
+    chunk of each bench path in f32 and f64 from its warmed-up state, bit
+    for bit (or, if two eager chunks differ, within their spread); the
+    banded f32 graph replayed again after route B's scratch cache was
+    emptied; and a step that reads the device on the host (cg_rtol set)
+    refused.  Returns the banded f32 chunk's captured launches."""
+    sgrid = PeriodicStructuredTH(st.space)
+    flat = st.u0.reshape(-1)
+    rows, loops = {}, {}
+    for dtype, ops in ((torch.float32, st.fast32.ops),
+                       (torch.float64, st.ops64)):
+        step = step_for(ops)
+        u, p = st.initial(dtype, st.dev)
+        state0 = bdf_steps(step, u, p, N_WARMUP)
+        key = f"generic_{str(dtype)[6:]}"
+        rows[key], loop, eager = graph_case(planar_advance(step), state0,
+                                            st.dev)
+        loops[key] = (loop, state0, eager)
+    for dtype in (torch.float32, torch.float64):
+        sstep, init_state, _ = build_spectral_projection_step(
+            sgrid, visc=1.0 / RE, dt=DT, dtype=dtype, device=st.dev)
+        state0 = spectral_steps(sstep, init_state(flat, flat, st.p0),
+                                N_WARMUP)
+        rows[f"structured_{str(dtype)[6:]}"], *_ = graph_case(
+            lambda s, sstep=sstep: sstep(s, ALPHAS[1], ETAS[1]), state0,
+            st.dev)
+    # replay after the cache that held route B's eager scratch let go
+    loop, state0, eager = loops["generic_float32"]
+    junk = route_b_evictions(st.dev)
+    for dst, src in zip(leaves(loop.state), leaves(state0)):
+        dst.copy_(src)
+    evicted = states_equal(loop.run(), eager)
+    del junk
+    # a step with a residual tolerance reads ||r|| on the host
+    u, p = st.initial(torch.float32, st.dev)
+    try:
+        ChunkLoop(planar_advance(step_for(st.fast32.ops, cg_rtol=1e-6)),
+                  (u, u, p, torch.zeros_like(p)), 2, st.dev)
+        refused = None
+    except CaptureError as exc:
+        refused = str(exc)[:300]
+    emit({"phase": "graph", "chunk": bench.CHUNK, "cases": rows,
+          "replay_after_scratch_eviction_equals_eager": evicted,
+          "host_read_refused": refused, "nvidia_smi": smi})
+    bad = [k for k, r in rows.items()
+           if not (r["graph_equals_eager"]
+                   or (not r["eager_equals_eager"]
+                       and r["max_abs_diff"] <= r["eager_spread"]))]
+    if bad or not evicted or refused is None:
+        raise AssertionError(f"graph checks failed: cases {bad}, replay "
+                             f"after eviction equal {evicted}, host read "
+                             f"refused {refused is not None}")
+    return rows["generic_float32"]["captured_launches"]
+
+
+def phase_bench(smi):
+    """``python -m navierstokes_tpu_torch.bench``'s main at its defaults
+    (128^2, scan loop, f32), in process: its JSON line, every path
+    non-zero and free of errors.  Returns the launch counts of its run."""
+    cuda_band.reset_launch_counts()
+    with contextlib.redirect_stdout(io.StringIO()):
+        record = bench.main()
+    launches = dict(cuda_band.LAUNCHES)
+    emit({"phase": "bench", "line": record, "launches": launches,
+          "nvidia_smi": smi})
+    failed = {k: v for k, v in record["paths"].items()
+              if k.endswith("_error") or not v > 0}
+    if failed:
+        raise AssertionError(f"bench paths read 0 or raised: {failed}")
+    return launches
 
 
 def write_profile(advance, smi, profile_dir, filename, title, n=None):
@@ -1099,47 +1273,37 @@ class StructuredSetup:
 
 
 def phase_structured(ss, smi, profile_dir):
-    """bench.py's structured path in its per-step dispatch form; returns
-    its ms per step."""
-    cfg = ss.cfg
-    torch.cuda.reset_peak_memory_stats()
-    flat = ss.u0.reshape(-1)
-    ss.state = spectral_steps(ss.step, ss.init_state(flat, flat, ss.p0),
-                              N_WARMUP)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(cfg["steps"]):
-        ss.advance()
-    torch.cuda.synchronize()
-    elapsed = time.perf_counter() - t0
-    peak = torch.cuda.max_memory_allocated()
-    u_flat, p_flat = ss.read_state(ss.state)
-    space = ss.space
-    if u_flat.shape != (space.n_velocity_dofs,) or \
-            p_flat.shape != (space.n_pnodes,):
-        raise AssertionError(f"{ss.name}: read_state shapes {u_flat.shape}, "
-                             f"{p_flat.shape}")
-    finite = bool(np.isfinite(u_flat).all() and np.isfinite(p_flat).all())
-    n_total = N_WARMUP + cfg["steps"]
-    expected = math.exp(-cfg["rate"] * (1.0 / RE) * (2.0 * math.pi) ** 2
-                        * n_total * DT)
-    amp_err = abs(float(np.abs(u_flat).max()) - expected) / expected
+    """bench.py's structured path through the port's bench module, in its
+    dispatch loop and then its scan loop (CUDA graphs of bench.CHUNK
+    steps); returns the dispatch loop's ms per step."""
+    cfg, space = ss.cfg, ss.space
+    loops = {}
+    for loop in ("dispatch", "scan"):
+        torch.cuda.reset_peak_memory_stats()
+        report = {}
+        result = bench.bench_structured(space, ss.u0, ss.p0, loop=loop,
+                                        n_steps=cfg["steps"], device=ss.dev,
+                                        report=report)
+        loops[loop] = dict(bench_row(result, space.n_dofs, report),
+                           peak_device_bytes=torch.cuda.max_memory_allocated())
+        u_flat, p_flat = ss.read_state(result[4])
+        if u_flat.shape != (space.n_velocity_dofs,) or \
+                p_flat.shape != (space.n_pnodes,):
+            raise AssertionError(f"{ss.name}: read_state shapes "
+                                 f"{u_flat.shape}, {p_flat.shape}")
+        if loop == "dispatch":
+            ss.state = result[4]
     emit({"phase": ss.name, "config": ss.config, "n_dofs": space.n_dofs,
-          "grid": list(ss.sgrid.shape), "steps_timed": cfg["steps"],
-          "seconds": elapsed, "ms_per_step": 1e3 * elapsed / cfg["steps"],
-          "dof_steps_per_s": cfg["steps"] * space.n_dofs / elapsed,
-          "amp_rel_err": amp_err, "finite": finite,
-          "setup_seconds": ss.setup_seconds,
-          "peak_device_bytes": peak, "nvidia_smi": smi})
-    if not finite:
-        raise AssertionError(f"{ss.name} produced non-finite values")
-    if not amp_err < 0.05:
-        raise AssertionError(f"{ss.name}: amp_rel_err {amp_err} >= 0.05")
+          "grid": list(ss.sgrid.shape), "chunk": bench.CHUNK,
+          "loops": loops, "setup_seconds": ss.setup_seconds,
+          "nvidia_smi": smi})
+    for loop, row in loops.items():
+        check_bench_row(ss.name, loop, row)
     RAW_IO[ss.name] = io_per_step(ss.advance)
     if profile_dir:
         write_profile(ss.advance, smi, profile_dir,
                       f"profile_{ss.name}.txt", ss.config)
-    return 1e3 * elapsed / cfg["steps"]
+    return loops["dispatch"]["ms_per_step"]
 
 
 def busy_share(ss):
@@ -3805,7 +3969,8 @@ APPS = {"native_n": 48, "gravity_n": 50, "gravity_linear_solver": "host_lu",
         "box_tol": 1e-3, "study_n": 128, "study_levels": 6,
         "study_banded_rtol": 1e-12, "study_bdf_n": 32, "study_bdf_levels": 4,
         "study_bdf_linear_solver": "frozen_lu", "study_tol": 1e-6,
-        "study_orders": (1.8, 2.4), "reference_tol": 1e-8}
+        "study_host_tol": 1e-10, "study_orders": (1.8, 2.4),
+        "reference_tol": 1e-8}
 # The JAX package's values on the CPU in float64 at the same settings (its
 # default linear solvers there: SuperLU on the host), printed by
 #   JAX_PLATFORMS=cpu python - <<'PY'
@@ -4140,7 +4305,12 @@ def phase_convergence(dev, smi):
     over 6 levels on the spectral step and on the banded step (a shipped
     application through circulant_apply), then BDF mode at 32^2 over 4
     levels; per level dt, L2(u), L2(p), the observed orders, each run's
-    launches per step.  Returns the launch counts by run."""
+    launches per step.  The spectral run also runs on this machine's CPU:
+    the card must agree with it to APPS["study_host_tol"] at every level
+    (the JAX package's CPU values come from another machine, whose NumPy
+    and LAPACK builds give host-built arrays one ulp apart, which the
+    study's large steps amplify; ROADMAP section C).  Returns the launch
+    counts by run."""
     n, levels = APPS["study_n"], APPS["study_levels"]
     bdf = {"linear_solver": APPS["study_bdf_linear_solver"]}
     runs = (("spectral", n, levels, "projection", None),
@@ -4171,6 +4341,13 @@ def phase_convergence(dev, smi):
         if not (max(errs) <= APPS["study_tol"]
                 and all(lo <= o <= hi for o in orders[1:])):
             bad.append(name)
+        if name == "spectral":
+            host = run_study("cpu", n_pts, n_lev, solver, options)[1]
+            host_errs = [abs(a - b) / b for a, b in zip(eu, host)]
+            out[name].update(l2_u_host_cpu=host,
+                             rel_err_host_cpu=host_errs)
+            if not max(host_errs) <= APPS["study_host_tol"]:
+                bad.append("spectral against this machine's CPU")
     emit({"phase": "convergence",
           "config": "convergence_test/taylor_green_vortex.py, Re 100, "
                     "dt = 2^-i to t = 1, f64: projection mode (spectral, "
@@ -4212,14 +4389,19 @@ def main():
         st = Setup(dev)
         err_apply = phase_apply(st)
         err_pcg, subs32 = phase_pcg(st)
-        by_path["main"], raw_ms["main"] = phase_main(st, smi, args.profile)
-        steps = N_WARMUP + N_STEPS + 1
+        main_launches, raw_ms["main"] = phase_main(st, smi, args.profile)
+        by_path["main"] = main_launches["dispatch"]
+        by_path["main_scan"] = main_launches["scan"]
+        # the dispatch loop's steps: warm-up, timed, the residual step
+        steps = bench.N_WARMUP + bench.N_STEPS + 1
         times = phase_timing(st, subs32, smi,
                              {k: v / steps
                               for k, v in by_path["main"].items()})
         if args.baseline:
             phase_baseline(st, subs32, smi, args.baseline)
         phase_parity(st)
+        captured = phase_graph(st, smi)
+        by_path["bench"] = phase_bench(smi)
     if "structured" in groups:
         setups = []
         for name in STRUCTURED:
@@ -4311,7 +4493,8 @@ def main():
                   "convergence_bdf")
         on_path = {"circulant_apply": [p for p in by_path
                                        if p != "dfg" and p not in newton],
-                   "circulant_pcg": ["main", "solver_cavity_kernels",
+                   "circulant_pcg": ["main", "main_scan", "bench",
+                                     "solver_cavity_kernels",
                                      "cavity3d_kernels"]}
         for name, paths in on_path.items():
             for path in paths:
@@ -4332,7 +4515,8 @@ def main():
                     "launches": sum(c[name] for c in by_path.values()),
                     "launches_by_path": {p: c[name]
                                          for p, c in by_path.items()},
-                    "max_abs_err": err, **{k: t[k] for k in keys}, **extra}
+                    "max_abs_err": err, **{k: t[k] for k in keys},
+                    "launches_per_graph_chunk": captured[name], **extra}
 
         print(json.dumps({"kernels": [
             row("circulant_apply", err_apply, apply_t,

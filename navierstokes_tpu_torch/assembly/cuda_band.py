@@ -405,8 +405,14 @@ def circulant_pcg(band, offsets, b, x0, inv_diag, maskv, iters, meanfree):
         stream = _stream(dev)
         scratch = None
         if plan.route == "grid":
-            scratch = _grid_scratch(plan, n, batch, dtype, dev,
-                                    stream).data_ptr()
+            if torch.cuda.is_current_stream_capturing():
+                # a CUDA graph bakes the pointer in: take the scratch from
+                # the graph's private pool, which lives as long as the
+                # graph, not from the cache, which may free it
+                scratch = _grid_scratch.__wrapped__(plan, n, batch, dtype,
+                                                    dev, stream)
+            else:
+                scratch = _grid_scratch(plan, n, batch, dtype, dev, stream)
         x = torch.empty_like(b)
         r = torch.empty_like(b)
         err = _kernel_fn("circulant_pcg", dtype)(
@@ -417,7 +423,7 @@ def circulant_pcg(band, offsets, b, x0, inv_diag, maskv, iters, meanfree):
             None if mask is None else mask.data_ptr(),
             0 if mask is None or mask.ndim == 1 else n,
             int(iters), int(bool(meanfree)), x.data_ptr(), r.data_ptr(),
-            scratch, stream)
+            None if scratch is None else scratch.data_ptr(), stream)
     _check(err, f"circulant_pcg ({plan.route} route)")
     LAUNCHES["circulant_pcg"] += 1
     return x, r

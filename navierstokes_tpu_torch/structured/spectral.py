@@ -389,9 +389,11 @@ def _modal_update(ops, Ch, Uh, Uh_old, Ph, alpha, k, visc, has_zero_mode):
     # old state still holds
     Ph_new = SplitC(Ph.re + Phi_h.re, Ph.im + Phi_h.im)
     if has_zero_mode:
+        # zero_() fills on the device; assigning a Python 0.0 to the
+        # element would copy it from the host, which a CUDA graph refuses
         zero_mode = (0,) * ops.dim
-        Ph_new.re[zero_mode] = 0.0
-        Ph_new.im[zero_mode] = 0.0
+        Ph_new.re[zero_mode].zero_()
+        Ph_new.im[zero_mode].zero_()
     return Uh_new, Ph_new
 
 

@@ -282,6 +282,9 @@ def test_new_modules_and_chip_smoke_import_no_jax():
             "import navierstokes_tpu_torch.demo.periodic_box_3d\n"
             "import navierstokes_tpu_torch.convergence_test."
             "taylor_green_vortex\n"
+            "import navierstokes_tpu_torch.bench\n"
+            "import navierstokes_tpu_torch.utils.graph\n"
+            "import navierstokes_tpu_torch.entry\n"
             "assert not any(m == 'jax' or m.startswith('jax.') "
             "for m in sys.modules), 'jax imported'\n"
             "assert 'navierstokes_tpu' not in sys.modules\n")
