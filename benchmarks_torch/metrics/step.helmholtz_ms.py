@@ -1,0 +1,8 @@
+"""``step.helmholtz_ms``: ms per step of the step's ``helmholtz`` phase
+(``ChunkLoop.phase_ms()``)."""
+
+from harness.spec import load_module
+
+
+def read(run):
+    return load_module("metrics", "program_trace").phase_ms(run, "helmholtz")

@@ -1099,6 +1099,52 @@ def graph_case(advance, state0, dev):
     return row, loop, eager
 
 
+def plain_ms_per_step(loop, replays=3):
+    """Ms per step of ``replays`` replays of the loop's graph (after one
+    more)."""
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    loop.run()
+    start.record()
+    for _ in range(replays):
+        loop.run()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / (replays * loop.n)
+
+
+def trace_case(loop, attempts=3):
+    """The program's tracing of a captured loop: the capture's split and
+    node count, each phase's device ms per step from marks in a short
+    graph (``ChunkLoop.phase_ms``) and that graph's own ms per step,
+    against plain replays of the loop's graph just before and after it.
+    The card runs a graph at one of two speeds, about 0.35 us per node
+    apart, and may switch within a process, so the reading is taken again
+    (up to ``attempts`` times) until the plain replays before and after
+    agree within 1 %."""
+    for attempt in range(1, attempts + 1):
+        before = plain_ms_per_step(loop)
+        marked = loop.phase_ms()
+        after = plain_ms_per_step(loop)
+        if abs(after / before - 1.0) <= 0.01:
+            break
+    plain = 0.5 * (before + after)
+    four = sum(marked.phases[k] for k in ("convection", "helmholtz",
+                                          "poisson", "correction"))
+    parts = loop.warmup_seconds + loop.record_seconds + \
+        loop.instantiate_seconds
+    return {"nodes": loop.nodes, "nodes_per_step": loop.nodes / loop.n,
+            "warmup_s": loop.warmup_seconds, "record_s": loop.record_seconds,
+            "instantiate_s": loop.instantiate_seconds,
+            "capture_s": loop.capture_seconds, "phase_ms": marked.phases,
+            "marked_ms_per_step": marked.step_ms,
+            "plain_ms_per_step": [before, after], "attempts": attempt,
+            "phases_vs_marked": four / marked.step_ms - 1.0,
+            "marked_vs_plain": marked.step_ms / plain - 1.0,
+            "ok": loop.nodes > 0 and parts <= loop.capture_seconds
+            and abs(four / marked.step_ms - 1.0) <= 0.03
+            and abs(marked.step_ms / plain - 1.0) <= 0.10}
+
+
 def route_b_evictions(dev, count=40):
     """Route-B solves of ``count`` other plans, each on a stream of its
     own (more than the scratch cache's 32 entries), then the cache
@@ -1124,8 +1170,11 @@ def phase_graph(st, smi):
     chunk of each bench path in f32 and f64 from its warmed-up state, bit
     for bit (or, if two eager chunks differ, within their spread); the
     banded f32 graph replayed again after route B's scratch cache was
-    emptied; and a step that reads the device on the host (cg_rtol set)
-    refused.  Returns the banded f32 chunk's captured launches."""
+    emptied; a step that reads the device on the host (cg_rtol set)
+    refused; and each graph's tracing (``trace_case``: node count, the
+    capture's split within ``capture_seconds``, the four phases within 3 %
+    of their marked graph's ms per step, which is within 10 % of the
+    plain replay's).  Returns the banded f32 chunk's captured launches."""
     sgrid = PeriodicStructuredTH(st.space)
     flat = st.u0.reshape(-1)
     rows, loops = {}, {}
@@ -1137,15 +1186,19 @@ def phase_graph(st, smi):
         key = f"generic_{str(dtype)[6:]}"
         rows[key], loop, eager = graph_case(planar_advance(step), state0,
                                             st.dev)
+        rows[key]["trace"] = trace_case(loop)
         loops[key] = (loop, state0, eager)
     for dtype in (torch.float32, torch.float64):
         sstep, init_state, _ = build_spectral_projection_step(
             sgrid, visc=1.0 / RE, dt=DT, dtype=dtype, device=st.dev)
         state0 = spectral_steps(sstep, init_state(flat, flat, st.p0),
                                 N_WARMUP)
-        rows[f"structured_{str(dtype)[6:]}"], *_ = graph_case(
+        key = f"structured_{str(dtype)[6:]}"
+        rows[key], loop, _ = graph_case(
             lambda s, sstep=sstep: sstep(s, ALPHAS[1], ETAS[1]), state0,
             st.dev)
+        rows[key]["trace"] = trace_case(loop)
+        del loop
     # replay after the cache that held route B's eager scratch let go
     loop, state0, eager = loops["generic_float32"]
     junk = route_b_evictions(st.dev)
@@ -1167,7 +1220,8 @@ def phase_graph(st, smi):
     bad = [k for k, r in rows.items()
            if not (r["graph_equals_eager"]
                    or (not r["eager_equals_eager"]
-                       and r["max_abs_diff"] <= r["eager_spread"]))]
+                       and r["max_abs_diff"] <= r["eager_spread"]))
+           or not r["trace"]["ok"]]
     if bad or not evicted or refused is None:
         raise AssertionError(f"graph checks failed: cases {bad}, replay "
                              f"after eviction equal {evicted}, host read "
@@ -1569,8 +1623,9 @@ def solver_busy(solver, ts, ms_per_step):
     device, launches, counts = 0.0, 0, {}
     for e in prof.key_averages():
         # kernel and memcpy rows only: an operator's row repeats the time
-        # of the kernels it launched
-        if e.device_type == DeviceType.CUDA:
+        # of the kernels it launched, and a range of the program's phases
+        # (a user annotation) spans them on the device's timeline too
+        if e.device_type == DeviceType.CUDA and not e.is_user_annotation:
             device += getattr(e, "self_device_time_total", None) or \
                 getattr(e, "self_cuda_time_total", 0.0)
             launches += e.count
@@ -2013,7 +2068,10 @@ class Instrumented:
         planar_step._pcg = c["pcg"]
         device, launches, syncs = 0.0, 0, 0
         for e in c["prof"].key_averages():
-            if e.device_type == DeviceType.CUDA:
+            # the program's phase ranges are drawn on the device's
+            # timeline too: not device work
+            if e.device_type == DeviceType.CUDA and \
+                    not e.is_user_annotation:
                 device += getattr(e, "self_device_time_total", None) or \
                     getattr(e, "self_cuda_time_total", 0.0)
                 launches += e.count

@@ -25,7 +25,8 @@ one thread-block cluster's shared memory there for the whole solve, route
 launch that fails raises; the wrapper never tries the other route.
 
 ``LAUNCHES`` counts kernel launches per wrapper; it is incremented where a
-kernel is launched and nowhere else.
+kernel is launched and nowhere else.  It is the counter group
+``"cuda_band.launches"`` of the tracing registry (``utils/monitor.py``).
 """
 
 from __future__ import annotations
@@ -42,6 +43,8 @@ from typing import NamedTuple
 
 import torch
 
+from navierstokes_tpu_torch.utils import monitor
+
 _PKG = Path(__file__).resolve().parent.parent
 SOURCE = _PKG / "csrc" / "band.cu"
 BUILD_DIR = _PKG / "_build"
@@ -55,7 +58,8 @@ H100_SMS = 132            # route B: at most one CTA per SM
 SMEM_PER_BLOCK = 232_448  # the opt-in shared memory of one sm_90 block
 SMEM_STATIC = 8_192       # reserved for the PCG kernels' static arrays
 
-LAUNCHES = {"circulant_apply": 0, "circulant_pcg": 0}
+LAUNCHES = monitor.counters("cuda_band.launches",
+                            ("circulant_apply", "circulant_pcg"))
 
 
 def reset_launch_counts() -> None:

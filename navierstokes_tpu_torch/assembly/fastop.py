@@ -41,6 +41,7 @@ import torch
 
 from navierstokes_tpu_torch import config
 from navierstokes_tpu_torch.assembly import cuda_band
+from navierstokes_tpu_torch.utils import monitor
 from navierstokes_tpu_torch.utils.segment import ell_from_sorted_coo
 
 RB = 128  # rows per block in AffineBand
@@ -790,6 +791,7 @@ class FastTaylorHood:
     and ``StridedConv`` are 2D only).
     """
 
+    @monitor.spanned("setup.engine")
     def __init__(self, space, dtype=None, device=None, *,
                  circulant_cap=cuda_band.MAX_OFFSETS, window_cap=6144,
                  max_bytes=None):

@@ -20,6 +20,7 @@ import scipy.sparse as sp
 import torch
 
 from navierstokes_tpu_torch import config
+from navierstokes_tpu_torch.utils import monitor
 from navierstokes_tpu_torch.utils.segment import (SegmentSum,
                                                    ell_from_sorted_coo,
                                                    padded_row_sum, take_rows)
@@ -123,6 +124,7 @@ class AMG:
     (default ``config.default_dtype(device)``).
     """
 
+    @monitor.spanned("setup.amg")
     def __init__(self, A_scipy, *, dtype=None, device=None, max_levels=10,
                  coarse_size=200, theta=0.08, jacobi_weight=2.0 / 3.0,
                  pre_smooth=1, post_smooth=1, dense_level_cap=None):
@@ -200,8 +202,9 @@ class AMG:
 
     def apply(self, r):
         """One V-cycle: approximate A^{-1} r for r (n,) or each column of
-        r (n, k)."""
-        return self._vcycle(0, r)
+        r (n, k).  Its device work is the phase ``amg.vcycle``."""
+        with monitor.phase("amg.vcycle"):
+            return self._vcycle(0, r)
 
     def solve(self, b, x0=None, tol=1e-12, maxiter=200):
         """AMG-preconditioned CG to tolerance."""

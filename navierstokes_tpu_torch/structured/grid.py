@@ -30,6 +30,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from navierstokes_tpu_torch.utils import monitor
+
 _DEC = 9  # coordinate comparison decimals
 
 
@@ -59,6 +61,8 @@ class PeriodicStructuredTH:
     kept for 2D callers.
     """
 
+    # the spectral engine is this grid and the operators built on it
+    @monitor.spanned("setup.engine", owner=lambda self, space: self)
     def __init__(self, space):
         self.space = space
         mesh = space.mesh

@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from navierstokes_tpu_torch import config
+from navierstokes_tpu_torch.utils import monitor
 
 
 def _roll(A, s):
@@ -111,6 +112,8 @@ class StructuredConvection:
     ``device="cpu"``) in ``dtype`` (default ``config.default_dtype``).
     """
 
+    @monitor.spanned("setup.engine",
+                     owner=lambda self, sgrid, *a, **k: sgrid)
     def __init__(self, sgrid, dtype=None, device=None):
         space = sgrid.space
         self.sgrid = sgrid

@@ -54,6 +54,7 @@ from navierstokes_tpu_torch.structured.grid import (NotStructured,
                                                     PeriodicStructuredTH)
 from navierstokes_tpu_torch.structured.ops import (StructuredConvection,
                                                    _roll)
+from navierstokes_tpu_torch.utils import monitor
 
 # the per-mode arrays that spectral_ops_to_numpy / _from_numpy carry
 _SPLIT_ARRAYS = ("Mhat", "Khat", "Ghat", "Dhat", "P", "PH")
@@ -201,6 +202,8 @@ class SpectralOperators:
     ``config.default_dtype``).
     """
 
+    @monitor.spanned("setup.engine",
+                     owner=lambda self, sgrid, *a, **k: sgrid)
     def __init__(self, sgrid: PeriodicStructuredTH, dtype=None, device=None):
         self._init_layout(sgrid, dtype, device)
         shape, d, nc = self.shape, self.d, self.n_uclass
@@ -370,30 +373,36 @@ def _axpy(a, X: SplitC, Y):
 def _modal_update(ops, Ch, Uh, Uh_old, Ph, alpha, k, visc, has_zero_mode):
     """The per-mode part of one step, from the spectral convection ``Ch``
     to (Uh_new, Ph_new); ``has_zero_mode``: ``ops`` holds the constant
-    mode at its index 0, whose pressure is zeroed."""
+    mode at its index 0, whose pressure is zeroed.  Its device work is
+    the phases ``helmholtz``, ``poisson`` and (a first part of)
+    ``correction``."""
     a0, a1, a2 = alpha
     # (1) Helmholtz: (a0/k M + nu K) u* = -(a1/k)M u - (a2/k)M u_old
     #                                     - C(extrapolated u) - G p
-    Bh = _axpy(-(a1 / k), ops.mass(Uh), None)
-    Bh = _axpy(-(a2 / k), ops.mass(Uh_old), Bh)
-    Bh = _axpy(-1.0, Ch, Bh)
-    Bh = _axpy(-1.0, ops.grad(Ph), Bh)
-    Ustar_h = ops.helmholtz_solve(a0 / k, visc, Bh)
+    with monitor.phase("helmholtz"):
+        Bh = _axpy(-(a1 / k), ops.mass(Uh), None)
+        Bh = _axpy(-(a2 / k), ops.mass(Uh_old), Bh)
+        Bh = _axpy(-1.0, Ch, Bh)
+        Bh = _axpy(-1.0, ops.grad(Ph), Bh)
+        Ustar_h = ops.helmholtz_solve(a0 / k, visc, Bh)
 
     # (2) incremental pressure Poisson (exact, mean-free)
-    Phi_h = ops.poisson_solve(_axpy(a0 / k, ops.div(Ustar_h), None))
+    with monitor.phase("poisson"):
+        Phi_h = ops.poisson_solve(_axpy(a0 / k, ops.div(Ustar_h), None))
 
     # (3) velocity correction + pressure update
-    Uh_new = _axpy(-(k / a0), ops.mass_solve(ops.grad(Phi_h)), Ustar_h)
-    # fresh sums, so zeroing the constant mode touches no tensor that the
-    # old state still holds
-    Ph_new = SplitC(Ph.re + Phi_h.re, Ph.im + Phi_h.im)
-    if has_zero_mode:
-        # zero_() fills on the device; assigning a Python 0.0 to the
-        # element would copy it from the host, which a CUDA graph refuses
-        zero_mode = (0,) * ops.dim
-        Ph_new.re[zero_mode].zero_()
-        Ph_new.im[zero_mode].zero_()
+    with monitor.phase("correction"):
+        Uh_new = _axpy(-(k / a0), ops.mass_solve(ops.grad(Phi_h)), Ustar_h)
+        # fresh sums, so zeroing the constant mode touches no tensor that
+        # the old state still holds
+        Ph_new = SplitC(Ph.re + Phi_h.re, Ph.im + Phi_h.im)
+        if has_zero_mode:
+            # zero_() fills on the device; assigning a Python 0.0 to the
+            # element would copy it from the host, which a CUDA graph
+            # refuses
+            zero_mode = (0,) * ops.dim
+            Ph_new.re[zero_mode].zero_()
+            Ph_new.im[zero_mode].zero_()
     return Uh_new, Ph_new
 
 
@@ -430,11 +439,13 @@ def build_spectral_projection_step(sgrid: PeriodicStructuredTH, *, visc,
         U, U_old, Uh, Uh_old, Ph = state
         if k is None:
             k = dt
-        U_ext = eta[0] * U + eta[1] * U_old
-        Ch = ops.fwd_u(conv(U_ext))
+        with monitor.phase("convection"):
+            U_ext = eta[0] * U + eta[1] * U_old
+            Ch = ops.fwd_u(conv(U_ext))
         Uh_new, Ph_new = _modal_update(ops, Ch, Uh, Uh_old, Ph, alpha, k,
                                        visc, True)
-        U_new = ops.inv_u(Uh_new)
+        with monitor.phase("correction"):
+            U_new = ops.inv_u(Uh_new)
         return (U_new, U, Uh_new, Uh, Ph_new)
 
     def to_device(a):
@@ -664,13 +675,15 @@ def shard_spectral_step(step, sgrid, device_mesh, axis_name=None):
     def sharded_step(states, alpha, eta, k=None):
         if k is None:
             k = dt
-        U_ext = [eta[0] * st[0] + eta[1] * st[1] for st in states]
-        Chs = fwd_u(conv(U_ext))
+        with monitor.phase("convection"):
+            U_ext = [eta[0] * st[0] + eta[1] * st[1] for st in states]
+            Chs = fwd_u(conv(U_ext))
         updates = [_modal_update(view, Ch, st[2], st[3], st[4], alpha, k,
                                  visc, s == 0)
                    for s, (view, Ch, st) in enumerate(zip(views, Chs,
                                                           states))]
-        U_new = inv_u([u[0] for u in updates])
+        with monitor.phase("correction"):
+            U_new = inv_u([u[0] for u in updates])
         return [(Un, st[0], Uh, st[2], Ph)
                 for Un, st, (Uh, Ph) in zip(U_new, states, updates)]
 

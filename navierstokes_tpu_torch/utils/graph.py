@@ -31,11 +31,24 @@ The band kernels' launch counts (``cuda_band.LAUNCHES``) grow where a
 wrapper launches a kernel, so on the card they count the launches of the
 warm-up step and of the capture, never of a replay: the loop reports
 ``captured_launches`` (per chunk) and ``replays``.
+
+The capture is traced (``utils/monitor.py``): the spans ``graph.warmup``
+(the side-stream step), ``graph.record`` (the ``n`` steps enqueued under
+capture) and ``graph.instantiate``, also kept as :attr:`warmup_seconds`,
+:attr:`record_seconds` and :attr:`instantiate_seconds`
+(:attr:`capture_seconds` is their sum plus the copies and the
+synchronisations), and :attr:`nodes`, the captured graph's node count,
+also added to the counter ``graph``/``nodes``.  While a profiler records,
+:meth:`run` is a ``chunk.replay`` range.  :meth:`phase_ms` times the
+phases of a step (``monitor.phase``) from marks in a second, short graph.
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
 import time
+from typing import NamedTuple
 
 import torch
 from torch.utils import _pytree as pytree
@@ -43,6 +56,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 
 from navierstokes_tpu_torch import config
 from navierstokes_tpu_torch.assembly import cuda_band
+from navierstokes_tpu_torch.utils import monitor
 
 
 class CaptureError(RuntimeError):
@@ -65,6 +79,33 @@ class _NoHostReads(TorchDispatchMode):
 
 def _storages(leaves):
     return {t.untyped_storage().data_ptr() for t in leaves}
+
+
+@functools.lru_cache(maxsize=None)
+def _cu_graph_get_nodes():
+    fn = ctypes.CDLL("libcuda.so.1").cuGraphGetNodes
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.POINTER(ctypes.c_size_t)]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _node_count(graph):
+    """Nodes of a captured graph kept by torch (``keep_graph=True``), by
+    ``cuGraphGetNodes`` of libcuda."""
+    count = ctypes.c_size_t(0)
+    err = _cu_graph_get_nodes()(graph.raw_cuda_graph(), None,
+                                ctypes.byref(count))
+    if err:
+        raise RuntimeError(f"cuGraphGetNodes failed (CUresult {err})")
+    return int(count.value)
+
+
+class PhaseTimes(NamedTuple):
+    """:meth:`ChunkLoop.phase_ms`'s result: ``phases``, ``{phase: ms per
+    step}``, and ``step_ms``, the marked steps' ms per step as a whole."""
+    phases: dict
+    step_ms: float
 
 
 class ChunkLoop:
@@ -96,6 +137,8 @@ class ChunkLoop:
         self.replays = 0
         self.captured_launches = None
         self.capture_seconds = None
+        self.warmup_seconds = self.record_seconds = None
+        self.instantiate_seconds = self.nodes = None
         self.graph = None
         if self.device.type == "cuda":
             self._capture(leaves)
@@ -121,30 +164,47 @@ class ChunkLoop:
             self._static = [t.clone() for t in leaves]
             side = torch.cuda.Stream()
             side.wait_stream(torch.cuda.current_stream())
-            with torch.cuda.stream(side):
-                self._leaves_of(self.step_fn(
-                    pytree.tree_unflatten(self._static, self._spec)))
-            side.synchronize()
-            graph = torch.cuda.CUDAGraph()
+            with monitor.span("graph.warmup") as warmup:
+                with torch.cuda.stream(side):
+                    self._leaves_of(self.step_fn(
+                        pytree.tree_unflatten(self._static, self._spec)))
+                side.synchronize()
             before = dict(cuda_band.LAUNCHES)
-            try:
-                with torch.cuda.graph(graph, stream=side):
-                    mode = torch.cuda.get_sync_debug_mode()
-                    torch.cuda.set_sync_debug_mode("error")
-                    try:
-                        self._record_chunk()
-                    finally:
-                        torch.cuda.set_sync_debug_mode(mode)
-            except RuntimeError as exc:
-                raise CaptureError(
-                    f"ChunkLoop: capturing {self.n} steps on {dev} failed "
-                    f"({exc}); note that {_HOST_READ}") from exc
+            with monitor.span("graph.record") as record:
+                graph = self._captured(self._record_chunk, self.n, side)
+            self.nodes = _node_count(graph)
+            monitor.counters("graph", ("nodes",))["nodes"] += self.nodes
+            with monitor.span("graph.instantiate") as instantiate:
+                graph.instantiate()
             torch.cuda.synchronize()
         self.graph = graph
         self.captured_launches = {k: cuda_band.LAUNCHES[k] - before[k]
                                   for k in before}
         self.state = pytree.tree_unflatten(self._static, self._spec)
+        self.warmup_seconds = warmup.seconds
+        self.record_seconds = record.seconds
+        self.instantiate_seconds = instantiate.seconds
         self.capture_seconds = time.perf_counter() - t0
+
+    @staticmethod
+    def _captured(body, n, stream):
+        """The graph of what ``body()`` (``n`` steps) enqueues, captured on
+        ``stream`` and kept, not yet instantiated; a capture that fails
+        raises :class:`CaptureError`."""
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
+        try:
+            with torch.cuda.graph(graph, stream=stream):
+                mode = torch.cuda.get_sync_debug_mode()
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    body()
+                finally:
+                    torch.cuda.set_sync_debug_mode(mode)
+        except RuntimeError as exc:
+            raise CaptureError(
+                f"ChunkLoop: capturing {n} steps on {stream.device} failed "
+                f"({exc}); note that {_HOST_READ}") from exc
+        return graph
 
     def _record_chunk(self):
         """``n`` steps from the static buffers, and the copy of the last
@@ -163,14 +223,81 @@ class ChunkLoop:
     def run(self):
         """Advance the state by one chunk of ``n`` steps; returns
         :attr:`state`."""
-        if self.graph is not None:
-            self.graph.replay()
-        else:
-            state = self.state
-            with _NoHostReads():
-                for _ in range(self.n):
-                    state = self.step_fn(state)
-            self._leaves_of(state)
-            self.state = state
+        with monitor.annotate("chunk.replay"):
+            if self.graph is not None:
+                self.graph.replay()
+            else:
+                state = self.state
+                with _NoHostReads():
+                    for _ in range(self.n):
+                        state = self.step_fn(state)
+                self._leaves_of(state)
+                self.state = state
         self.replays += 1
         return self.state
+
+    def phase_ms(self, replays=3, steps=5):
+        """Time of each phase of a step (``utils/monitor.phase``: the four
+        phases of the step, ``amg.vcycle`` where the step has one) in ms
+        per step, as a :class:`PhaseTimes`.
+
+        On the card ``steps`` steps from copies of the current state are
+        captured as a second graph with device marks on (a timing event at
+        each phase boundary, an event node of the graph), which is
+        replayed once (dropped) and then ``replays`` times, each between
+        two events of its own (``step_ms``), and freed.  On the CPU
+        ``replays`` chunks of ``steps`` eager steps from the same copies
+        are timed by the host clock after one dropped chunk.  The loop's
+        graph, state, counts and ``cuda_band.LAUNCHES`` are left as they
+        were."""
+        if self.graph is None:
+            return self._phase_ms_eager(replays, steps)
+        dev = self._static[0].device
+        with torch.cuda.device(dev):
+            inputs = [t.clone() for t in self._static]
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+
+            def body():
+                state = pytree.tree_unflatten(inputs, self._spec)
+                for _ in range(steps):
+                    state = self.step_fn(state)
+
+            launches = dict(cuda_band.LAUNCHES)
+            with monitor.device_marks(dev) as marks:
+                graph = self._captured(body, steps, side)
+            cuda_band.LAUNCHES.update(launches)
+            graph.instantiate()
+            graph.replay()
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            total, step_ms = {}, 0.0
+            for _ in range(replays):
+                start.record()
+                graph.replay()
+                end.record()
+                end.synchronize()
+                step_ms += start.elapsed_time(end)
+                for name, ms in marks.ms().items():
+                    total[name] = total.get(name, 0.0) + ms
+            graph.reset()
+        n = replays * steps
+        return PhaseTimes({k: v / n for k, v in total.items()}, step_ms / n)
+
+    def _phase_ms_eager(self, replays, steps):
+        inputs = pytree.tree_map(torch.clone, self.state)
+
+        def chunk():
+            state = inputs
+            for _ in range(steps):
+                state = self.step_fn(state)
+
+        chunk()
+        with monitor.device_marks(self.device) as marks:
+            t0 = time.perf_counter()
+            for _ in range(replays):
+                chunk()
+            seconds = time.perf_counter() - t0
+        n = replays * steps
+        return PhaseTimes({k: v / n for k, v in marks.ms().items()},
+                          1e3 * seconds / n)
