@@ -18,7 +18,12 @@ non-zero):
                (24^3: the apply on three planes with K = 65 and on one
                with K = 15, the velocity PCG B = 3, K = 65 streamed on
                route B, masked and not, the mean-free Poisson K = 15 on
-               route A).
+               route A); and the AMG-preconditioned Poisson solve in one
+               launch (cuda_amg.amg_pcg, 30 iterations) at the 128^2
+               cavity's shapes, mean free in f32 and f64 and with an
+               outflow wall in f32, and on the torus in f32: against _pcg
+               with AMG.apply after 0, 1, 2 and 30 iterations, a second
+               launch and two CUDA-graph replays bit for bit, and timed.
 4. main     -- the generic banded SBDF-2 projection step on the periodic
                Taylor-Green vortex at 128^2, f32, through the port's bench
                module (navierstokes_tpu_torch/bench.py, bench.py's generic
@@ -75,7 +80,7 @@ non-zero):
                through ``ProjectionSolver`` + ``BDFTimeStepping`` and the
                manual loop, with the solver's defaults (AMG Poisson
                preconditioner, cg_iters (40, 40, 20)) and cg_rtol = 1e-6
-               (the default 1e-8 is below f32 roundoff): 4 warm-up and 200
+               (the default 1e-8 is below f32 roundoff): 4 warm-up and 100
                timed steps.  Requires step_kind "fast", finite state and
                residuals, lid nodes at 1 and wall nodes at 0 to 1e-6;
                prints every operator's format, ms/step, DoF-steps/s,
@@ -109,7 +114,7 @@ non-zero):
 15. problem_cavity -- the cavity of solver_cavity as an application: an
                InstationaryProblem subclass run by solve_problem() (CFL
                every step, vorticity added to the field output, PVD output
-               every 50 steps into a temporary directory), 200 timed steps.
+               every 50 steps into a temporary directory), 100 timed steps.
                Requires step_kind "fast", the lid and wall guards, the
                expected output files and circulant_apply launches; prints
                ms/step beside solver_cavity's, ms per output write, host
@@ -299,7 +304,7 @@ from torch.utils import _pytree as pytree
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from navierstokes_tpu_torch import bench, native
-from navierstokes_tpu_torch.assembly import cuda_band
+from navierstokes_tpu_torch.assembly import cuda_amg, cuda_band
 from navierstokes_tpu_torch.assembly.fastop import (FastTaylorHood,
                                                     combine_circulant,
                                                     planar_ops_from_numpy,
@@ -335,8 +340,8 @@ from navierstokes_tpu_torch.solvers import (ImplicitBDFSolver,
                                             StationarySolver, planar_step)
 from navierstokes_tpu_torch.solvers.halo_step import \
     build_halo_projection_step
-from navierstokes_tpu_torch.solvers.planar_step import \
-    build_planar_projection_step
+from navierstokes_tpu_torch.solvers.planar_step import (
+    build_planar_projection_step, build_poisson_amg)
 from navierstokes_tpu_torch.structured import (PeriodicStructuredTH,
                                                StructuredConvection,
                                                build_spectral_projection_step)
@@ -353,6 +358,9 @@ N_PARITY = 10
 ALPHAS = ((1.0, -1.0, 0.0), (1.5, -2.0, 0.5))
 ETAS = ((1.0, 0.0), (2.0, -1.0))
 RUNS = 30
+# the plain torch versions take 2-160 ms a call: five timed calls give
+# their median to a few per cent, and 30 would cost about 15 s a run
+PLAIN_RUNS = 5
 PROFILE_LAUNCHES = 20
 # the structured spectral path: bench.py's sizes (NS_BENCH_DIM=2 / 3), the
 # timed steps and the parity grid sizes
@@ -363,7 +371,7 @@ STRUCTURED = {
 N_BUSY = 10
 # the solver-API phases: the cavity of benchmarks/cavity_re1000.py (its
 # Re, step size and fixed-iteration counts) and the parity grids
-SOLVER = {"n": 128, "re": 1000.0, "steps": 200, "cg_rtol": 1e-6,
+SOLVER = {"n": 128, "re": 1000.0, "steps": 100, "cg_rtol": 1e-6,
           "kernel_steps": 50, "kernel_cg_iters": (18, 300, 10),
           "periodic_steps": 100, "n_parity": 32, "channel": (20, 4)}
 DEVICE = "cuda:0"
@@ -379,7 +387,11 @@ REPLACES = {
         "navierstokes_tpu/assembly/pallas_band.py:220 (pallas_call :106)",
     "circulant_pcg":
         "navierstokes_tpu/assembly/pallas_band.py:202 (pallas_call :183)",
+    "amg_pcg": "none: the JAX package's V-cycle and CG are plain JAX",
 }
+# the Poisson solve of the benchmark's march (cavity2d_128.march_graph):
+# AMG-preconditioned, 30 iterations, no tolerance
+AMG_ITERS = 30
 
 
 def emit(obj):
@@ -395,13 +407,14 @@ def abs_err(got, want):
     return float((got.double().cpu() - want.double().cpu()).abs().max())
 
 
-def time_ms(fn):
-    """Median device time of ``fn`` in ms (CUDA events, after warm-up)."""
+def time_ms(fn, runs=RUNS):
+    """Median device time of ``fn`` in ms over ``runs`` calls (CUDA
+    events, after warm-up)."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
     times = []
-    for _ in range(RUNS):
+    for _ in range(runs):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -418,8 +431,9 @@ def torus_offsets(n, W):
                    for j in (-2, -1, 0, 1, 2)})
 
 
-def device_ms(fn):
-    """Device-only time of ``fn`` in ms: the band kernels' time in a
+def device_ms(fn, kernel="circulant_"):
+    """Device-only time of ``fn`` in ms: the time of the kernels whose
+    name holds ``kernel`` (the band kernels by default) in a
     torch.profiler trace of PROFILE_LAUNCHES calls, over the number of
     kernel records in the trace (one per call; a long process can lose
     records, so the trace's own count is the divisor, a trace with fewer
@@ -437,7 +451,7 @@ def device_ms(fn):
             torch.cuda.synchronize()
         total, records = 0.0, 0
         for e in prof.key_averages():
-            if "circulant_" in e.key:
+            if kernel in e.key:
                 total += getattr(e, "self_device_time_total", None) or \
                     getattr(e, "self_cuda_time_total", 0.0)
                 records += e.count
@@ -853,6 +867,175 @@ def phase_pcg(st):
     return err_main, subs[torch.float32]
 
 
+def amg_work(case):
+    """Bytes (the band and every level's data once, b and x0 read, x and
+    r written) and FLOPs of one fused AMG-PCG solve: per iteration the
+    CG's matvec, dot products and updates (``pcg_work``'s count) and one
+    V-cycle, whose levels each take four matvecs (2 per stored entry of
+    the band or row table), the diagonal products and updates (12 per
+    row) and the restriction (1 per row), and the coarse product (2 nc^2
+    per cycle)."""
+    amg, L, b, x0, mask, iters = case
+    packed = cuda_amg._packed(amg, L)
+    esize, n = b.element_size(), b.numel()
+    nbytes = (L.band.numel() + packed.tpack.numel() + 4 * n +
+              (n if mask is not None else 0)) * esize + \
+        packed.ipack.numel() * 4
+    K = len(L.offsets)
+    per_cycle = n * (4 * 2 * K + 13 + (10 if mask is not None else 0)) + \
+        sum(rows * (4 * 2 * width + 13)
+            for rows, width, *_ in packed.shape.levels) + \
+        2 * packed.shape.coarse ** 2
+    per_iter = n * (2 * K + 11 + (6 if mask is not None else 2))
+    return nbytes, (iters + 1) * (per_iter + per_cycle)
+
+
+def amg_systems(st):
+    """The march's Poisson solve (the 128^2 cavity's AMG, mean free) in
+    f32 and f64, a masked one (the wall x = 1 prescribed, a DFG-style
+    outflow) in f32, and the main path's torus (periodic levels) in f32:
+    ``{name: (amg, L, b, x0, mask, iters)}``."""
+    cavity = TaylorHoodSpace(lid_driven_cavity_setup(N_POINTS)[0])
+    f32, f64 = (FastTaylorHood(cavity, dtype=dtype, device=st.dev)
+                for dtype in (torch.float32, torch.float64))
+    out = {}
+    for name, fast, masked in (("meanfree_float32", f32, False),
+                               ("masked_float32", f32, True),
+                               ("meanfree_float64", f64, False),
+                               ("torus_float32", st.fast32, False)):
+        space = fast.space
+        pmask = None
+        if masked:
+            pmask = np.abs(space.p_coords[:, 0] - 1.0) < 1e-12
+            pmask = pmask[fast.permP]
+        amg = build_poisson_amg(fast, pmask)
+        mask = None if pmask is None else torch.tensor(
+            np.where(pmask, 0.0, 1.0), dtype=fast.dtype, device=st.dev)
+        rng = np.random.default_rng(11)
+        b, x0 = (torch.tensor(rng.standard_normal(space.n_pnodes),
+                              dtype=fast.dtype, device=st.dev)
+                 for _ in range(2))
+        b, x0 = ((b - b.mean(), x0 - x0.mean()) if mask is None
+                 else (mask * b, mask * x0))
+        out[name] = (amg, fast.L, b, x0, mask, AMG_ITERS)
+    return out
+
+
+def graph_replays_equal(case):
+    """Whether two replays of a CUDA graph of one fused solve give the
+    eager call's bits."""
+    eager = cuda_amg.amg_pcg(*case)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        cuda_amg.amg_pcg(*case)
+    side.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = cuda_amg.amg_pcg(*case)
+    replays = []
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        replays.append(tuple(t.clone() for t in out))
+    return all(torch.equal(a, b) and torch.equal(a, c)
+               for a, b, c in zip(eager, *replays))
+
+
+def amg_errors(case, iters):
+    """The kernel against ``_pcg`` with ``AMG.apply`` after ``iters``
+    iterations: ``({"x": , "r": , "res": , "res_plain": }, (x, r),
+    x_plain)``, the relative max-norm errors of x and r and both residual
+    norms over |b|."""
+    amg, L, b, x0, mask, _ = case
+    x, r = cuda_amg.amg_pcg(amg, L, b, x0, mask, iters)
+    x_ref, r_ref = cuda_amg.amg_pcg_plain(amg, L, b, x0, mask, iters)
+    bn = float(torch.linalg.vector_norm(b.double()))
+    return {"x": rel_err(x, x_ref), "r": rel_err(r, r_ref),
+            "res": float(torch.linalg.vector_norm(r.double())) / bn,
+            "res_plain": float(torch.linalg.vector_norm(r_ref.double())) /
+            bn}, (x, r), x_ref
+
+
+# The iteration counts at which check_amg_pcg holds the kernel to its
+# plain version.  After 0, 1 and 2 iterations x and r depend directly on
+# the V-cycle (a skipped smoothing sweep, level or prolongation term moves
+# them at once); after AMG_ITERS both have converged, to any SPD
+# preconditioner's x, and only their roundoff is compared.
+AMG_CHECK_ITERS = (0, 1, 2)
+# Limits per dtype, each 2.9-4.5 times the largest reading of the four
+# cases on an H100 80GB HBM3 at 700 W (f32 / f64): the relative max-norm
+# error of x after 1, 2 and AMG_ITERS iterations (3.5e-6 / 5.5e-15), of r
+# after 0, 1 and 2 (2.4e-5 / 4.6e-14: r = b - A x cancels), and the
+# residual norms after AMG_ITERS, |res / res_plain - 1| (6.6e-6 /
+# 4.8e-14).  Both residuals must also be below AMG_RES_MAX |b| (readings
+# 1.6e-16 to 5.4e-16).
+AMG_LIMITS = {torch.float32: {"x": 1e-5, "r": 1e-4, "res": 3e-5},
+              torch.float64: {"x": 2e-14, "r": 2e-13, "res": 2e-13}}
+AMG_RES_MAX = 1e-14
+
+
+def check_amg_pcg(st):
+    """The fused AMG-preconditioned Poisson solve (``cuda_amg.amg_pcg``)
+    against its plain version (``_pcg`` with ``AMG.apply``) at the march's
+    shapes, mean free in f32 and f64 and masked in f32, and on the torus:
+    x and r after 0, 1 and 2 iterations, x and the residual norm after
+    AMG_ITERS within AMG_LIMITS, both residuals then below AMG_RES_MAX
+    |b|, a second
+    launch and two graph replays bit for bit; each case timed by events
+    beside its bound, the march's (mean free) also by device time and
+    against the plain version.  Part of the kernels phase.  Returns (max
+    abs error on x of the f32 cases, {case: row})."""
+    rows, err_f32, failed = {}, 0.0, []
+    for name, case in amg_systems(st).items():
+        amg, L, b, x0, mask, iters = case
+        conv, (x, r), x_ref = amg_errors(case, iters)
+        x2, r2 = cuda_amg.amg_pcg(*case)
+        torch.cuda.synchronize()
+        limits = AMG_LIMITS[b.dtype]
+        early = {k: amg_errors(case, k)[0] for k in AMG_CHECK_ITERS}
+        ok = all(e["x"] <= limits["x"] and e["r"] <= limits["r"]
+                 for e in early.values()) and \
+            conv["x"] <= limits["x"] and \
+            abs(conv["res"] / conv["res_plain"] - 1.0) <= limits["res"] and \
+            max(conv["res"], conv["res_plain"]) <= AMG_RES_MAX
+        if b.dtype == torch.float32:
+            err_f32 = max(err_f32, abs_err(x, x_ref))
+        rerun = torch.equal(x, x2) and torch.equal(r, r2)
+        replays = graph_replays_equal(case)
+        shape = cuda_amg._packed(amg, L).shape
+        plan = cuda_amg.amg_pcg_plan(shape, b.dtype, mask is not None)
+        b_ms, b_by = bound(*amg_work(case), b.dtype)
+        # device and plain times at the march's shapes (mean free), the
+        # event time everywhere
+        march = name.startswith("meanfree")
+        rows[name] = {
+            "levels": [shape.n] + [lv[0] for lv in shape.levels] +
+            [shape.coarse], "distributed_levels": plan.ndist,
+            "smem_bytes": plan.smem_bytes, "iters": iters,
+            "rel_err": conv["x"], "res": conv["res"],
+            "res_plain": conv["res_plain"],
+            "early_rel_err": {k: {"x": e["x"], "r": e["r"]}
+                              for k, e in early.items()},
+            "rerun_bitwise": rerun, "graph_replays_bitwise": replays,
+            "ms": time_ms(lambda c=case: cuda_amg.amg_pcg(*c)),
+            "device_ms": device_ms(lambda c=case: cuda_amg.amg_pcg(*c),
+                                   kernel="amg_pcg") if march else None,
+            "plain_ms": time_ms(lambda c=case: cuda_amg.amg_pcg_plain(*c),
+                                PLAIN_RUNS) if march else None,
+            "bound_ms": b_ms, "bound_by": b_by}
+        if not (ok and rerun and replays):
+            failed.append(name)
+    emit({"phase": "kernels", "kernel": "amg_pcg", "limits": {
+        str(dt).replace("torch.", ""): lim for dt, lim in AMG_LIMITS.items()},
+        "res_max": AMG_RES_MAX, "cases": rows})
+    if failed:
+        raise AssertionError(f"amg_pcg: {failed} outside the limits or not "
+                             "bitwise on a rerun or graph replay (see the "
+                             "kernels line above)")
+    return err_f32, rows
+
+
 def csr_of(op):
     """The CirculantBand ``op`` as a CSR matrix (for torch.sparse.mm)."""
     n, rows = op.n, torch.arange(op.n, device=op.band.device)
@@ -883,7 +1066,7 @@ def phase_timing(st, subs32, smi, launches_per_step):
         "device_ms": device_ms(lambda: cuda_band.circulant_apply(
             M.band, M.offsets, xM)),
         "plain_ms": time_ms(lambda: cuda_band.circulant_apply_plain(
-            M.band, M.offsets, xM)),
+            M.band, M.offsets, xM), PLAIN_RUNS),
         "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": time_ms(lambda: torch.sparse.mm(A, xT)),
         "launches_per_step": launches_per_step["circulant_apply"]}},
@@ -895,7 +1078,7 @@ def phase_timing(st, subs32, smi, launches_per_step):
             "ms": time_ms(lambda c=case: cuda_band.circulant_pcg(*c)),
             "device_ms": device_ms(lambda c=case: cuda_band.circulant_pcg(*c)),
             "plain_ms": time_ms(lambda c=case: cuda_band.circulant_pcg_plain(
-                *c)),
+                *c), PLAIN_RUNS),
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
             "launches_per_step": 1}
     # the three solves of a step as one piece of work
@@ -1026,11 +1209,12 @@ def phase_main(st, smi, profile_dir):
           "nvidia_smi": smi})
     for loop, row in loops.items():
         check_bench_row("main", loop, row)
-        for name, count in launches[loop].items():
-            if count <= 0:
+        for name in ("circulant_apply", "circulant_pcg"):
+            if launches[loop][name] <= 0:
                 raise AssertionError(f"{name} was not launched by the main "
                                      f"path's {loop} loop")
-    want = {name: 3 * bench.CHUNK for name in cuda_band.LAUNCHES}
+    want = {"circulant_apply": 3 * bench.CHUNK,
+            "circulant_pcg": 3 * bench.CHUNK, "amg_pcg": 0}
     if loops["scan"]["captured_launches"] != want:
         raise AssertionError(f"captured launches "
                              f"{loops['scan']['captured_launches']}, "
@@ -1740,7 +1924,8 @@ def pcg_solve_row(case, dtype):
            "rel_err": err, "res": rn, "res_plain": rn_ref,
            "ms": time_ms(lambda: cuda_band.circulant_pcg(*case)),
            "device_ms": device_ms(lambda: cuda_band.circulant_pcg(*case)),
-           "plain_ms": time_ms(lambda: cuda_band.circulant_pcg_plain(*case)),
+           "plain_ms": time_ms(lambda: cuda_band.circulant_pcg_plain(*case),
+                               PLAIN_RUNS),
            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
     ok = err < 1e-5 and abs(rn - rn_ref) <= 1e-4 * rn_ref + 1e-6
     return row, ok, abs_err(x, x_ref)
@@ -1766,7 +1951,8 @@ def apply_row(op, batch, dev, seed):
     return {"K": len(op.offsets), "n": op.n, "planes": batch,
             "rel_err": err, "max_abs_err": abs_err(call(), plain()),
             "ms": time_ms(call), "device_ms": device_ms(call),
-            "plain_ms": time_ms(plain), "bound_ms": b_ms, "bound_by": b_by,
+            "plain_ms": time_ms(plain, PLAIN_RUNS), "bound_ms": b_ms,
+            "bound_by": b_by,
             "library_ms": time_ms(lambda: torch.sparse.mm(A, xT))}
 
 
@@ -1965,7 +2151,7 @@ def phase_solver_parity(dev):
 # (Schafer-Turek, Re = 100) at resolution 3 seeded from a saturated state
 # of the JAX package's monolithic solver on the same (symmetric) mesh;
 # dfg_parity is the same application at resolution 1 in f64.
-PROBLEMS = {"cavity_n": 128, "cavity_steps": 200, "output_every": 50,
+PROBLEMS = {"cavity_n": 128, "cavity_steps": 100, "output_every": 50,
             "dfg_res": 3.0, "dfg_dt": 0.005, "dfg_steps": 1400,
             "dfg_window": 5.0,
             "dfg_seed": "benchmarks/states/dfg_2d2_state_mono_res3_sym.npz",
@@ -4447,6 +4633,7 @@ def main():
         st = Setup(dev)
         err_apply = phase_apply(st)
         err_pcg, subs32 = phase_pcg(st)
+        err_amg, amg_t = check_amg_pcg(st)
         main_launches, raw_ms["main"] = phase_main(st, smi, args.profile)
         by_path["main"] = main_launches["dispatch"]
         by_path["main_scan"] = main_launches["scan"]
@@ -4576,6 +4763,7 @@ def main():
                     "max_abs_err": err, **{k: t[k] for k in keys},
                     "launches_per_graph_chunk": captured[name], **extra}
 
+        amg_keys = ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by")
         print(json.dumps({"kernels": [
             row("circulant_apply", err_apply, apply_t,
                 {"cavity3d_applies": mesh3d_t["applies"]}),
@@ -4584,7 +4772,17 @@ def main():
                                    for n, t in cavity_t.items()},
                  "cavity3d_solves": {n: {k: t[k] for k in cavity_keys}
                                      for n, t in mesh3d_t["solves"]
-                                     .items()}})]}),
+                                     .items()}}),
+            {"name": "amg_pcg", "route": "cuda",
+             "source": "navierstokes_tpu_torch/csrc/amg_pcg.cu",
+             "replaces": REPLACES["amg_pcg"],
+             "launches": sum(c.get("amg_pcg", 0) for c in by_path.values()),
+             "launches_by_path": {p: c.get("amg_pcg", 0)
+                                  for p, c in by_path.items()},
+             "max_abs_err": err_amg,
+             **{k: amg_t["meanfree_float32"][k] for k in amg_keys},
+             "cases": {n: {k: t[k] for k in amg_keys}
+                       for n, t in amg_t.items()}}]}),
             flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

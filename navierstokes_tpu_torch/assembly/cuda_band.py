@@ -47,6 +47,9 @@ from navierstokes_tpu_torch.utils import monitor
 
 _PKG = Path(__file__).resolve().parent.parent
 SOURCE = _PKG / "csrc" / "band.cu"
+# every source of the library: the band kernels and the AMG solve
+# (``cuda_amg.py``), compiled by one nvcc call
+SOURCES = (SOURCE, _PKG / "csrc" / "amg_pcg.cu")
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -59,7 +62,7 @@ SMEM_PER_BLOCK = 232_448  # the opt-in shared memory of one sm_90 block
 SMEM_STATIC = 8_192       # reserved for the PCG kernels' static arrays
 
 LAUNCHES = monitor.counters("cuda_band.launches",
-                            ("circulant_apply", "circulant_pcg"))
+                            ("circulant_apply", "circulant_pcg", "amg_pcg"))
 
 
 def reset_launch_counts() -> None:
@@ -80,18 +83,20 @@ def _find_nvcc() -> str:
             return str(cand)
     raise RuntimeError(
         "nvcc not found (PATH, $CUDA_HOME/bin): the CUDA band kernels are "
-        f"compiled from {SOURCE} at first use and need the CUDA toolkit")
+        f"compiled from {SOURCES} at first use and need the CUDA toolkit")
 
 
 def library_path() -> Path:
-    """Where the build of the current source and flags goes."""
-    h = hashlib.sha256(SOURCE.read_bytes())
+    """Where the build of the current sources and flags goes."""
+    h = hashlib.sha256()
+    for src in SOURCES:
+        h.update(src.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"libns_band_{h.hexdigest()[:16]}.so"
 
 
 def build_library() -> tuple[Path, str]:
-    """Compile ``band.cu`` unless this source was built already.
+    """Compile ``SOURCES`` unless these sources were built already.
 
     Returns ``(path, log)``; ``log`` holds nvcc's report (registers,
     shared memory, spills per kernel) or is empty when the build existed.
@@ -102,14 +107,29 @@ def build_library() -> tuple[Path, str]:
     nvcc = _find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
+    objs = [tmp.with_suffix(f".{src.stem}.o") for src in SOURCES]
+    # one nvcc per source, all at once (each takes 10-15 s), then the link
+    compile_flags = [f for f in NVCC_FLAGS if f != "-shared"]
+    procs = [subprocess.Popen([nvcc, *compile_flags, "-c", "-o", str(obj),
+                               str(src)], stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for src, obj in zip(SOURCES, objs)]
+    logs = [proc.communicate()[0] for proc in procs]
+    link = None
+    if all(proc.returncode == 0 for proc in procs):
+        link = subprocess.run([nvcc, "-shared", "-o", str(tmp),
+                               *map(str, objs)], capture_output=True,
+                              text=True)
+        logs.append(link.stdout + link.stderr)
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    codes = [proc.returncode for proc in procs] + \
+        [link.returncode if link is not None else None]
+    if link is None or link.returncode != 0:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stdout}\n{proc.stderr}")
+        raise RuntimeError(f"nvcc failed {codes}:\n" + "\n".join(logs))
     os.replace(tmp, out)
-    return out, proc.stdout + proc.stderr
+    return out, "".join(logs)
 
 
 @functools.lru_cache(maxsize=None)
@@ -130,6 +150,12 @@ def load_library() -> ctypes.CDLL:
         fn = getattr(lib, f"ns_circulant_pcg_{suffix}")
         fn.argtypes = [I, I, I, I, I, P, P, I, LL, LL, P, P, P, I, P, I, I,
                        I, P, P, P, P]
+        fn.restype = I
+        fn = getattr(lib, f"ns_amg_pcg_prepare_{suffix}")
+        fn.argtypes = [I, I]
+        fn.restype = I
+        fn = getattr(lib, f"ns_amg_pcg_{suffix}")
+        fn.argtypes = [P, P, P, I, I, P, P, P, P, P, P, P, P, P]
         fn.restype = I
     return lib
 

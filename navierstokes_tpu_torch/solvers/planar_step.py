@@ -8,9 +8,13 @@ correction, each a Jacobi-PCG (the Poisson solve optionally preconditioned
 by an AMG V-cycle, ``build_poisson_amg``).  With circulant operators, no
 tolerance and no preconditioner, each solve is one launch of the CUDA
 kernel ``cuda_band.circulant_pcg`` on CUDA tensors (its plain torch
-version on CPU tensors); with a tolerance (``cg_rtol``) the loop runs in
-torch and reads the residual norm on the host once per iteration.  Every
-band matvec outside the whole-solve kernel goes through
+version on CPU tensors); without a tolerance, the Poisson solve
+preconditioned by the AMG that ``build_poisson_amg`` built is one launch
+of ``cuda_amg.amg_pcg`` when its hierarchy fits one cluster (decided
+where the step is built, ``cuda_amg.prepare``); with a tolerance
+(``cg_rtol``) the loop runs in torch and reads the residual norm on the
+host once per iteration.  Every
+band matvec outside the whole-solve kernels goes through
 ``cuda_band.circulant_apply``.
 
 State vectors live in the engine's permuted node numbering.
@@ -20,7 +24,7 @@ from __future__ import annotations
 
 import torch
 
-from navierstokes_tpu_torch.assembly import cuda_band
+from navierstokes_tpu_torch.assembly import cuda_amg, cuda_band
 from navierstokes_tpu_torch.assembly.fastop import (CirculantBand, PlanarOps,
                                                     combine_circulant,
                                                     conv_apply)
@@ -79,9 +83,12 @@ def _inv(d):
 
 def _step_core(ops: PlanarOps, masks, u, u_old, p, phi, alpha, eta,
                bc_values, k, body_rhs, *, visc, conv_coeff, cg_iters,
-               cg_rtol, with_residuals, p_precond=None, rotational=False,
-               conv_strided=None):
+               cg_rtol, with_residuals, p_precond=None, p_amg=None,
+               rotational=False, conv_strided=None):
     """One projection step; returns (u, p, phi[, residual norms]).
+
+    ``p_amg``: the hierarchy whose ``apply`` is ``p_precond``, when its
+    solve runs in one launch (``cuda_amg.prepare``).
 
     Its device work runs in four phases (``utils/monitor.phase``):
     ``convection``, ``helmholtz``, ``poisson`` and ``correction``."""
@@ -175,9 +182,13 @@ def _step_core(ops: PlanarOps, masks, u, u_old, p, phi, alpha, eta,
     # (2) incremental pressure Poisson (warm-started)
     with monitor.phase("poisson"):
         rhs = project_p((a0 / k) * div(u_star))
-        got = None if p_precond is not None else _cg_fast(
-            ops.L, rhs, project_p(phi), cg_iters[1], _inv(ops.diag_l),
-            p_free, p_free is None)
+        if p_amg is not None and cg_rtol is None:
+            got = cuda_amg.amg_pcg(p_amg, ops.L, rhs, project_p(phi),
+                                   p_free, cg_iters[1])
+        else:
+            got = None if p_precond is not None else _cg_fast(
+                ops.L, rhs, project_p(phi), cg_iters[1], _inv(ops.diag_l),
+                p_free, p_free is None)
         if got is None:
             got = _pcg(stiff_masked, rhs, project_p(phi), cg_iters[1],
                        inv_diag=_inv(ops.diag_l), project=project_p,
@@ -294,13 +305,20 @@ def build_planar_projection_step(fast, *, visc, dt, cg_iters=(12, 45, 8),
     ``PlanarOps``), or any callable ``r -> z`` in permuted pressure
     numbering.
     """
+    ops = fast if isinstance(fast, PlanarOps) else fast.ops
+    dtype, device = ops.diag_m.dtype, ops.diag_m.device
+    p_amg = None
     if poisson_precond == "amg":
         if isinstance(fast, PlanarOps):
             raise TypeError("poisson_precond='amg' needs a FastTaylorHood "
                             "engine: a PlanarOps bundle carries no space")
-        poisson_precond = build_poisson_amg(fast, pres_bc_mask).apply
-    ops = fast if isinstance(fast, PlanarOps) else fast.ops
-    dtype, device = ops.diag_m.dtype, ops.diag_m.device
+        amg = build_poisson_amg(fast, pres_bc_mask)
+        poisson_precond = amg.apply
+        # without a tolerance the solve may run in one launch: decided
+        # here, once, and the hierarchy packed before any capture
+        if cg_rtol is None:
+            p_amg = cuda_amg.prepare(amg, ops.L, dtype,
+                                     pres_bc_mask is not None)
 
     # contiguous: the masks go to the band kernels as they are
     def free(mask):
@@ -319,7 +337,8 @@ def build_planar_projection_step(fast, *, visc, dt, cg_iters=(12, 45, 8),
                   cg_iters=tuple(int(i) for i in cg_iters),
                   cg_rtol=None if cg_rtol is None else float(cg_rtol),
                   with_residuals=bool(with_residuals),
-                  p_precond=poisson_precond, rotational=bool(rotational),
+                  p_precond=poisson_precond, p_amg=p_amg,
+                  rotational=bool(rotational),
                   conv_strided=ops.conv_strided)
 
     def step(u, u_old, p, phi, alpha, eta, bc_values=None, k=None,

@@ -210,7 +210,8 @@ def test_cpu_tensors_take_the_plain_versions():
     want = cuda_band.circulant_pcg_plain(band, offs, x, torch.zeros_like(x),
                                          invd, 1.0, 3, False)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
-    assert cuda_band.LAUNCHES == {"circulant_apply": 0, "circulant_pcg": 0}
+    assert cuda_band.LAUNCHES == {"circulant_apply": 0, "circulant_pcg": 0,
+                                  "amg_pcg": 0}
 
 
 @pytest.mark.parametrize("dtype", [torch.float16, torch.bfloat16,
@@ -258,3 +259,41 @@ def test_kernel_module_imports_and_builds_lazily(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="nvcc not found"):
         cuda_band.build_library()
     assert not (tmp_path / "build").exists()
+
+
+@pytest.mark.parametrize("fail", [None, "amg_pcg", "link"])
+def test_build_compiles_each_source_then_links(tmp_path, monkeypatch, fail):
+    """``build_library`` compiles every source to an object (no
+    ``-shared``) and links the objects into the library; a failed compile
+    or link raises with nvcc's output and leaves no file behind.  A
+    stand-in nvcc logs its arguments."""
+    log = tmp_path / "calls.txt"
+    nvcc = tmp_path / "nvcc"
+    nvcc.write_text(
+        "#!/bin/sh\n"
+        f"echo \"$@\" >> {log}\n"
+        "out=''; prev=''\n"
+        "for a in \"$@\"; do [ \"$prev\" = -o ] && out=$a; prev=$a; done\n"
+        f"case \"$*\" in *-shared*) [ {fail!r} = 'link' ] && exit 3;; esac\n"
+        f"case \"$*\" in *{fail}.cu*) echo broken; exit 2;; esac\n"
+        "echo \"ptxas info from $out\"; : > \"$out\"\n")
+    nvcc.chmod(0o755)
+    monkeypatch.setenv("PATH", f"{tmp_path}:{os.environ['PATH']}")
+    monkeypatch.setattr(cuda_band, "BUILD_DIR", tmp_path / "build")
+    if fail is not None:
+        with pytest.raises(RuntimeError, match="nvcc failed"):
+            cuda_band.build_library()
+        assert list((tmp_path / "build").iterdir()) == []
+        return
+    path, out = cuda_band.build_library()
+    assert path == cuda_band.library_path() and path.exists()
+    assert [p.name for p in (tmp_path / "build").iterdir()] == [path.name]
+    calls = log.read_text().splitlines()
+    assert len(calls) == len(cuda_band.SOURCES) + 1
+    for src in cuda_band.SOURCES:
+        call = next(c for c in calls if c.endswith(str(src)))
+        assert " -c " in f" {call} " and "-shared" not in call
+        assert "arch=compute_90a,code=sm_90a" in call
+    assert calls[-1].startswith("-shared -o ")
+    assert out.count("ptxas info") == len(cuda_band.SOURCES) + 1
+    assert cuda_band.build_library() == (path, "")

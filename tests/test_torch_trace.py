@@ -240,9 +240,11 @@ def test_launch_counts_are_a_registry_group():
     assert monitor.COUNTERS["cuda_band.launches"] is cuda_band.LAUNCHES
     cuda_band.LAUNCHES["circulant_pcg"] += 1
     cuda_band.reset_launch_counts()
-    assert cuda_band.LAUNCHES == {"circulant_apply": 0, "circulant_pcg": 0}
+    assert cuda_band.LAUNCHES == {"circulant_apply": 0, "circulant_pcg": 0,
+                                  "amg_pcg": 0}
     advance, state = case("periodic")
     loop = ChunkLoop(advance, state, 2, device="cpu")
     loop.run()
-    assert cuda_band.LAUNCHES == {"circulant_apply": 0, "circulant_pcg": 0}
+    assert cuda_band.LAUNCHES == {"circulant_apply": 0, "circulant_pcg": 0,
+                                  "amg_pcg": 0}
     assert loop.captured_launches is None and loop.capture_seconds is None
