@@ -202,8 +202,10 @@ class AMG:
 
     def apply(self, r):
         """One V-cycle: approximate A^{-1} r for r (n,) or each column of
-        r (n, k).  Its device work is the phase ``amg.vcycle``."""
-        with monitor.phase("amg.vcycle"):
+        r (n, k).  Its device work is the phase ``amg.vcycle``, which
+        marks its own start: a solve's own work runs between two
+        V-cycles."""
+        with monitor.phase("amg.vcycle", joined=False):
             return self._vcycle(0, r)
 
     def solve(self, b, x0=None, tol=1e-12, maxiter=200):

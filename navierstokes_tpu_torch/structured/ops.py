@@ -154,7 +154,15 @@ class StructuredConvection:
         return out
 
     def __call__(self, U):
-        return self.scatter_local(self.quadrature(self.gather_local(U)))
+        """The convection of class grids ``U``; its device work is the
+        phases ``convection.gather``, ``convection.quadrature`` and
+        ``convection.scatter``."""
+        with monitor.phase("convection.gather"):
+            u_loc = self.gather_local(U)
+        with monitor.phase("convection.quadrature"):
+            r = self.quadrature(u_loc)
+        with monitor.phase("convection.scatter"):
+            return self.scatter_local(r)
 
     def quadrature(self, u_loc):
         """(ntau, nlu, *grid, d) local values -> (ntau, nlu, *grid, d)

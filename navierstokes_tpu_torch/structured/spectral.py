@@ -117,7 +117,8 @@ class MatmulDFT:
     """n-D DFT over the grid axes as cos/sin matrix products.
 
     Operates on contiguous tensors with layout (a, *grid, d): grid axes
-    are 1..dim inclusive.
+    are 1..dim inclusive.  The device work of each transform is the phase
+    ``spectral.dft``.
     """
 
     def __init__(self, shape, dtype, device):
@@ -134,14 +135,16 @@ class MatmulDFT:
         """Real (a, *grid, d) -> SplitC, numpy fft convention
         (e^{-2 pi i k g / N}): per axis multiply by C - iS."""
         re, im = X, None
-        for i, (C, S) in enumerate(self.mats):
-            ax = 1 + i
-            if im is None:
-                re, im = _mm_axis(C, re, ax), -_mm_axis(S, re, ax)
-            else:
-                re, im = (
-                    _mm_axis(S, im, ax, add=_mm_axis(C, re, ax)),
-                    _mm_axis(S, re, ax, add=_mm_axis(C, im, ax), alpha=-1.0))
+        with monitor.phase("spectral.dft"):
+            for i, (C, S) in enumerate(self.mats):
+                ax = 1 + i
+                if im is None:
+                    re, im = _mm_axis(C, re, ax), -_mm_axis(S, re, ax)
+                else:
+                    re, im = (
+                        _mm_axis(S, im, ax, add=_mm_axis(C, re, ax)),
+                        _mm_axis(S, re, ax, add=_mm_axis(C, im, ax),
+                                 alpha=-1.0))
         return SplitC(re, im)
 
     def inv_real(self, Z: SplitC):
@@ -152,13 +155,15 @@ class MatmulDFT:
         s = 1.0 / float(np.prod(self.shape))
         re, im = Z.re, Z.im
         last = len(self.mats) - 1
-        for i, (C, S) in enumerate(self.mats):
-            ax = 1 + i
-            re_new = _mm_axis(S, im, ax, add=_mm_axis(C, re, ax), alpha=-1.0)
-            if i < last:
-                im = _mm_axis(S, re, ax, add=_mm_axis(C, im, ax))
-            re = re_new
-        return s * re
+        with monitor.phase("spectral.dft"):
+            for i, (C, S) in enumerate(self.mats):
+                ax = 1 + i
+                re_new = _mm_axis(S, im, ax, add=_mm_axis(C, re, ax),
+                                  alpha=-1.0)
+                if i < last:
+                    im = _mm_axis(S, re, ax, add=_mm_axis(C, im, ax))
+                re = re_new
+            return s * re
 
 
 def _cmatmul(S, V: SplitC, mode=None):

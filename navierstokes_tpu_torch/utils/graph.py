@@ -238,8 +238,10 @@ class ChunkLoop:
 
     def phase_ms(self, replays=3, steps=5):
         """Time of each phase of a step (``utils/monitor.phase``: the four
-        phases of the step, ``amg.vcycle`` where the step has one) in ms
-        per step, as a :class:`PhaseTimes`.
+        phases of the step, and those nested in them: ``amg.vcycle`` where
+        the step has one, the structured convection's three and
+        ``spectral.dft`` in the spectral step) in ms per step, as a
+        :class:`PhaseTimes`.
 
         On the card ``steps`` steps from copies of the current state are
         captured as a second graph with device marks on (a timing event at

@@ -24,7 +24,11 @@ The tracing is one process-wide registry, read by the benchmark and by
   which become event nodes of a graph being captured, or the host clock
   on the CPU).  The steps' phases are ``convection``,
   ``helmholtz``, ``poisson`` and ``correction``, covering a step whole;
-  ``amg.vcycle`` runs inside ``poisson``.
+  ``amg.vcycle`` runs inside ``poisson``; in the spectral step
+  ``convection.gather``, ``convection.quadrature`` and
+  ``convection.scatter`` (the structured convection) and ``spectral.dft``
+  (each ``MatmulDFT`` transform) run inside ``convection`` and
+  ``correction``.
 * :func:`counters` -- named groups of integer counters in
   :data:`COUNTERS` that code increments in place
   (``cuda_band.LAUNCHES`` is the group ``"cuda_band.launches"``).
@@ -235,16 +239,18 @@ class PhaseMarks:
     """Marks at the boundaries of every :func:`phase` entered while it is
     on (:func:`device_marks`): timing CUDA events recorded on the current
     stream (event nodes of a graph being captured), or host-clock readings
-    on the CPU.  A phase entered at the top level right after another
-    ended starts at that one's end mark (the steps' phases cover them
-    whole, so a boundary takes one mark); a nested phase marks its own
-    start and end."""
+    on the CPU.  A phase entered right after a sibling (a phase at its
+    depth under the same parent) ended starts at that one's end mark, so a
+    boundary takes one mark: work between the two counts to the later one
+    (the steps' phases cover them whole, and so do the structured
+    convection's).  A phase entered with ``joined=False`` marks its own
+    start, as a nested phase that follows no sibling does."""
 
     def __init__(self, device):
         self.cuda = torch.device(device).type == "cuda"
         self.marks = []
         self._depth = 0
-        self._end = None        # the last top-level phase's end mark
+        self._ends = {}         # depth -> the end mark of its last phase
 
     def _mark(self):
         if not self.cuda:
@@ -254,11 +260,10 @@ class PhaseMarks:
         return event
 
     @contextlib.contextmanager
-    def phase(self, name):
-        top = self._depth == 0
-        start = self._end if top and self._end is not None else \
-            self._mark()
-        self._end = None
+    def phase(self, name, joined=True):
+        depth = self._depth
+        end = self._ends.pop(depth, None)
+        start = end if joined and end is not None else self._mark()
         self._depth += 1
         try:
             yield
@@ -266,7 +271,9 @@ class PhaseMarks:
             self._depth -= 1
             end = self._mark()
             self.marks.append((name, start, end))
-            self._end = end if top else None
+            # the phase's children end with it
+            self._ends = {d: m for d, m in self._ends.items() if d < depth}
+            self._ends[depth] = end
 
     def ms(self):
         """``{phase: milliseconds}`` between each phase's marks, summed
@@ -293,10 +300,10 @@ def device_marks(device):
         _MARKS = None
 
 
-def phase(name):
+def phase(name, joined=True):
     """Context of one phase of a step's device work: marked under
-    :func:`device_marks`, a profiler range while a profiler records, else
-    the shared null context."""
+    :func:`device_marks` (``joined``: see :class:`PhaseMarks`), a profiler
+    range while a profiler records, else the shared null context."""
     if _MARKS is not None:
-        return _MARKS.phase(name)
+        return _MARKS.phase(name, joined)
     return annotate(name)

@@ -27,6 +27,10 @@ from navierstokes_tpu_torch.utils.graph import ChunkLoop
 ALPHA, ETA = (1.5, -2.0, 0.5), (2.0, -1.0)
 PHASES = ("convection", "helmholtz", "poisson", "correction")
 KINDS = ("periodic", "masked_amg", "spectral")
+# the phases nested in the four, per kind of step
+NESTED = {"periodic": set(), "masked_amg": {"amg.vcycle"},
+          "spectral": {"convection.gather", "convection.quadrature",
+                       "convection.scatter", "spectral.dft"}}
 
 _steps = {}
 
@@ -184,8 +188,7 @@ def test_marks_leave_the_step_bitwise_equal(kind):
     with monitor.device_marks("cpu") as marks:
         marked = advance(state)
     names = {name for name, *_ in marks.marks}
-    assert names == set(PHASES) | ({"amg.vcycle"} if kind == "masked_amg"
-                                   else set())
+    assert names == set(PHASES) | NESTED[kind]
     for a, b in zip(pytree.tree_leaves(plain), pytree.tree_leaves(marked)):
         assert torch.equal(a, b)
     with pytest.raises(RuntimeError, match="already on"):
@@ -209,9 +212,11 @@ def test_profiler_sees_spans_and_phases_as_annotations():
 
 @pytest.mark.parametrize("kind", KINDS)
 def test_phase_ms_on_the_cpu(kind):
-    """``phase_ms`` returns the four phases (and ``amg.vcycle`` with the
-    AMG), which add up to the marked steps' time; the loop's state, its
-    counts and the launch counters are left as they were."""
+    """``phase_ms`` returns the four phases (and those nested in them:
+    ``amg.vcycle`` with the AMG, the structured convection's three and
+    ``spectral.dft`` in the spectral step), which add up to the marked
+    steps' time; the loop's state, its counts and the launch counters are
+    left as they were."""
     advance, state = case(kind)
     loop = ChunkLoop(advance, state, 2, device="cpu")
     loop.run()
@@ -219,8 +224,7 @@ def test_phase_ms_on_the_cpu(kind):
     cuda_band.LAUNCHES["circulant_apply"] += 7
     launches = dict(cuda_band.LAUNCHES)
     got = loop.phase_ms(replays=2, steps=2)
-    want = set(PHASES) | ({"amg.vcycle"} if kind == "masked_amg" else set())
-    assert set(got.phases) == want
+    assert set(got.phases) == set(PHASES) | NESTED[kind]
     four = sum(got.phases[p] for p in PHASES)
     assert abs(four - got.step_ms) <= 0.1 * got.step_ms
     if kind == "masked_amg":
