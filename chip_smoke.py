@@ -61,16 +61,29 @@ non-zero):
                then the scan loop (4 chunks of 50).  Requires finite
                values and amp_rel_err < 0.05 in each loop; prints
                DoF-steps/s, the host setup seconds and the peak device
-               memory per loop.
+               memory per loop.  Each step launches the structured
+               convection's kernels once and no band kernel, in both
+               loops (50 captured per chunk).
 8. structured3d -- the same on the triply periodic shear wave at 48^3
                (2.76 M DoFs), f32: 50 eager steps, then 2 chunks of 50.
 9. structured_timing -- at both shapes, CUDA-event medians of one
-               convection call, fwd_u / inv_u (MatmulDFT) beside
+               convection call (its two kernels), of the plain chain it
+               replaced (gather_local, quadrature, scatter_local), of
+               each kernel alone, fwd_u / inv_u (MatmulDFT) beside
                torch.fft.fftn / ifftn over the same axes of the same class
                grids, one _cmatmul in each lowering (vpu, einsum) and one
                helmholtz_solve; and the device-busy share of 10 steps
                (torch.profiler kernel time over wall time) with the top
                kernels by device time.
+9a. structured_conv -- the structured convection's two kernels
+               (structured/cuda_conv.py) against the plain chain on the
+               card at both shapes, f32 and f64, from a seeded velocity
+               (largest error over the largest plain entry: 1e-5 / 1e-12);
+               a second call, and two replays of a captured call, bit for
+               bit; each kernel's profiler time beside its bound (the
+               class grids read and written once, the rule's FMAs), and
+               the launches per step and per graph chunk of 7 and 8: the
+               kernels line's structured_convection row.
 10. structured_parity -- 10 spectral steps at f64 on the card and on the
                CPU from the same state, at 128^2 and 16^3; u and p must
                agree to 1e-9 relative.
@@ -344,7 +357,8 @@ from navierstokes_tpu_torch.solvers.planar_step import (
     build_planar_projection_step, build_poisson_amg)
 from navierstokes_tpu_torch.structured import (PeriodicStructuredTH,
                                                StructuredConvection,
-                                               build_spectral_projection_step)
+                                               build_spectral_projection_step,
+                                               cuda_conv)
 from navierstokes_tpu_torch.structured.spectral import _cmatmul
 from navierstokes_tpu_torch.timestepping import BDFTimeStepping
 from navierstokes_tpu_torch.utils.graph import CaptureError, ChunkLoop
@@ -388,7 +402,12 @@ REPLACES = {
     "circulant_pcg":
         "navierstokes_tpu/assembly/pallas_band.py:202 (pallas_call :183)",
     "amg_pcg": "none: the JAX package's V-cycle and CG are plain JAX",
+    "structured_convection": "none: XLA fused the JAX package's "
+                             "structured convection on the TPU",
 }
+# the structured convection's kernels against the plain chain: the largest
+# error over the largest plain entry
+CONV_LIMITS = {torch.float32: 1e-5, torch.float64: 1e-12}
 # the Poisson solve of the benchmark's march (cavity2d_128.march_graph):
 # AMG-preconditioned, 30 iterations, no tolerance
 AMG_ITERS = 30
@@ -1214,7 +1233,8 @@ def phase_main(st, smi, profile_dir):
                 raise AssertionError(f"{name} was not launched by the main "
                                      f"path's {loop} loop")
     want = {"circulant_apply": 3 * bench.CHUNK,
-            "circulant_pcg": 3 * bench.CHUNK, "amg_pcg": 0}
+            "circulant_pcg": 3 * bench.CHUNK, "amg_pcg": 0,
+            "structured_convection": 0}
     if loops["scan"]["captured_launches"] != want:
         raise AssertionError(f"captured launches "
                              f"{loops['scan']['captured_launches']}, "
@@ -1513,17 +1533,24 @@ class StructuredSetup:
 def phase_structured(ss, smi, profile_dir):
     """bench.py's structured path through the port's bench module, in its
     dispatch loop and then its scan loop (CUDA graphs of bench.CHUNK
-    steps); returns the dispatch loop's ms per step."""
+    steps).  Every step launches the structured convection once and no
+    band kernel: N_WARMUP + steps launches in the dispatch loop, bench.CHUNK
+    captured in a chunk of the scan loop.  Returns the dispatch loop's ms
+    per step, each loop's launch counts and the scan loop's captured in a
+    chunk."""
     cfg, space = ss.cfg, ss.space
-    loops = {}
+    loops, launches = {}, {}
     for loop in ("dispatch", "scan"):
         torch.cuda.reset_peak_memory_stats()
         report = {}
+        cuda_band.reset_launch_counts()
         result = bench.bench_structured(space, ss.u0, ss.p0, loop=loop,
                                         n_steps=cfg["steps"], device=ss.dev,
                                         report=report)
+        launches[loop] = dict(cuda_band.LAUNCHES)
         loops[loop] = dict(bench_row(result, space.n_dofs, report),
-                           peak_device_bytes=torch.cuda.max_memory_allocated())
+                           peak_device_bytes=torch.cuda.max_memory_allocated(),
+                           launches=launches[loop])
         u_flat, p_flat = ss.read_state(result[4])
         if u_flat.shape != (space.n_velocity_dofs,) or \
                 p_flat.shape != (space.n_pnodes,):
@@ -1537,11 +1564,20 @@ def phase_structured(ss, smi, profile_dir):
           "nvidia_smi": smi})
     for loop, row in loops.items():
         check_bench_row(ss.name, loop, row)
+    none = dict.fromkeys(cuda_band.LAUNCHES, 0)
+    want = {"dispatch": dict(none, structured_convection=bench.N_WARMUP
+                             + cfg["steps"]),
+            "scan": dict(none, structured_convection=bench.CHUNK)}
+    got = {"dispatch": launches["dispatch"],
+           "scan": loops["scan"]["captured_launches"]}
+    if got != want:
+        raise AssertionError(f"{ss.name}: launches {got} (the scan loop's "
+                             f"captured in a chunk), expected {want}")
     RAW_IO[ss.name] = io_per_step(ss.advance)
     if profile_dir:
         write_profile(ss.advance, smi, profile_dir,
                       f"profile_{ss.name}.txt", ss.config)
-    return loops["dispatch"]["ms_per_step"]
+    return loops["dispatch"]["ms_per_step"], launches, got["scan"]
 
 
 def busy_share(ss):
@@ -1631,10 +1667,17 @@ def phase_structured_timing(setups, smi):
             raise AssertionError(f"{ss.name}: _cmatmul lowerings differ by "
                                  f"{low_err} > 1e-5")
         a0k = ALPHAS[1][0] / DT
+        R = cuda_conv.quadrature(U, conv.tables)
         report[ss.name] = {
             "config": ss.config,
             "ms": {
                 "convection": time_ms(lambda: conv(U)),
+                "convection_plain": time_ms(lambda: conv.plain(U),
+                                            PLAIN_RUNS),
+                "convection_quadrature_kernel": time_ms(
+                    lambda: cuda_conv.quadrature(U, conv.tables)),
+                "convection_scatter_kernel": time_ms(
+                    lambda: cuda_conv.scatter(R, conv.tables)),
                 "fwd_u_matmul_dft": time_ms(lambda: ops.fwd_u(U)),
                 "inv_u_matmul_dft": time_ms(lambda: ops.inv_u(Uh)),
                 "torch_fft_fftn": time_ms(
@@ -1659,6 +1702,79 @@ def phase_structured_timing(setups, smi):
                      "(2^dim, *grid, d) class grids",
           "shapes": report})
     return report
+
+
+def conv_work(tables, esize):
+    """Bytes (the class grids read once and written once) and FLOPs (the
+    rule's FMAs per simplex and cell, nq (nlu d (2 + d) + d^2), twice) of
+    one structured convection."""
+    cells = math.prod(tables.shape)
+    d, nlu = tables.dim, tables.nlu
+    fma = tables.nq * (nlu * d * (2 + d) + d * d) * tables.ntau * cells
+    return 2 * 2 ** d * cells * d * esize, 2 * fma
+
+
+def check_structured_conv(setups, timing, steps):
+    """The structured convection's two kernels against the plain chain
+    (``StructuredConvection.plain``) at each setup's shape in f32 and f64,
+    from a seeded velocity; a second call and two replays of a captured
+    call equal the first bit for bit.  Each case's device ms per kernel
+    (profiler) and bound; ``timing`` (phase_structured_timing's report)
+    gives the event and plain ms, ``steps`` each setup's launches per step
+    and per graph chunk.  Returns the kernels line's row."""
+    cases = {}
+    for ss in setups:
+        shape = (ss.sgrid.n_uclass,) + tuple(ss.sgrid.shape) + \
+            (ss.cfg["dim"],)
+        for dtype in (torch.float32, torch.float64):
+            conv = StructuredConvection(ss.sgrid, dtype=dtype, device=ss.dev)
+            gen = torch.Generator(device=ss.dev).manual_seed(7)
+            U = torch.randn(shape, generator=gen, dtype=dtype, device=ss.dev)
+            got = conv(U)
+            again = conv(U).equal(got)
+            side = torch.cuda.Stream(ss.dev)
+            side.wait_stream(torch.cuda.current_stream(ss.dev))
+            with torch.cuda.stream(side):
+                conv(U)
+            torch.cuda.current_stream(ss.dev).wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                out = conv(U)
+            graph.replay()
+            first = out.clone()
+            graph.replay()
+            torch.cuda.synchronize()
+            replays = first.equal(out) and first.equal(got)
+            R = cuda_conv.quadrature(U, conv.tables)
+            dev_ms = {
+                "quadrature": device_ms(
+                    lambda: cuda_conv.quadrature(U, conv.tables),
+                    "structured_conv_quadrature"),
+                "scatter": device_ms(lambda: cuda_conv.scatter(R, conv.tables),
+                                     "structured_conv_scatter")}
+            b_ms, b_by = bound(*conv_work(conv.tables, U.element_size()),
+                               dtype)
+            cases[f"{ss.name}_{str(dtype)[6:]}"] = {
+                "rel_err": rel_err(got, conv.plain(U)),
+                "limit": CONV_LIMITS[dtype], "second_call_equal": again,
+                "replays_equal": replays, "device_ms": dev_ms,
+                "bound_ms": b_ms, "bound_by": b_by}
+            del graph, out, first, got, R
+    row = {"max_rel_err": max(c["rel_err"] for c in cases.values()),
+           "launches_per_step": {n: s["per_step"] for n, s in steps.items()},
+           "launches_per_graph_chunk": {n: s["per_graph_chunk"]
+                                        for n, s in steps.items()},
+           "ms": {n: {k: v for k, v in t["ms"].items()
+                      if k.startswith("convection")}
+                  for n, t in timing.items()},
+           "cases": cases}
+    emit({"phase": "structured_conv", **row})
+    bad = {k: c for k, c in cases.items()
+           if not (c["rel_err"] <= c["limit"] and c["second_call_equal"]
+                   and c["replays_equal"])}
+    if bad:
+        raise AssertionError(f"structured convection kernels: {bad}")
+    return row
 
 
 def phase_structured_parity(setups):
@@ -4648,11 +4764,19 @@ def main():
         captured = phase_graph(st, smi)
         by_path["bench"] = phase_bench(smi)
     if "structured" in groups:
-        setups = []
+        setups, conv_steps = [], {}
         for name in STRUCTURED:
             setups.append(StructuredSetup(name, dev))
-            raw_ms[name] = phase_structured(setups[-1], smi, args.profile)
-        phase_structured_timing(setups, smi)
+            raw_ms[name], loop_launches, captured_s = phase_structured(
+                setups[-1], smi, args.profile)
+            by_path[name] = loop_launches["dispatch"]
+            by_path[name + "_scan"] = loop_launches["scan"]
+            conv_steps[name] = {
+                "per_step": loop_launches["dispatch"]["structured_convection"]
+                / (bench.N_WARMUP + STRUCTURED[name]["steps"]),
+                "per_graph_chunk": captured_s["structured_convection"]}
+        structured_t = phase_structured_timing(setups, smi)
+        conv_row = check_structured_conv(setups, structured_t, conv_steps)
         phase_structured_parity(setups)
         del setups
     cavity_ms = None
@@ -4730,7 +4854,11 @@ def main():
         # crossing's one-device banded leg apart)
         # the apps group: the Newton and BDF demos and the spectral box
         # apply no band operator; the convergence study's banded run must
-        newton = ("newton_dfg", "newton_cavity", "bdf_dfg", "newton_parity",
+        # the structured group: the spectral step applies none (its
+        # phases require the structured convection's launches instead)
+        newton = ("structured2d", "structured2d_scan", "structured3d",
+                  "structured3d_scan",
+                  "newton_dfg", "newton_cavity", "bdf_dfg", "newton_parity",
                   "shell3d", "bfs", "blasius", "halo_shell",
                   "spectral_sharded", "stationary_sharded",
                   "multidevice_parity", "demo_gravity", "demo_taylor_green",
@@ -4782,7 +4910,15 @@ def main():
              "max_abs_err": err_amg,
              **{k: amg_t["meanfree_float32"][k] for k in amg_keys},
              "cases": {n: {k: t[k] for k in amg_keys}
-                       for n, t in amg_t.items()}}]}),
+                       for n, t in amg_t.items()}},
+            {"name": "structured_convection", "route": "cuda",
+             "source": "navierstokes_tpu_torch/csrc/structured_conv.cu",
+             "replaces": REPLACES["structured_convection"],
+             "launches": sum(c.get("structured_convection", 0)
+                             for c in by_path.values()),
+             "launches_by_path": {p: c.get("structured_convection", 0)
+                                  for p, c in by_path.items()},
+             **conv_row}]}),
             flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

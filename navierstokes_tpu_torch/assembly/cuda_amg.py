@@ -337,8 +337,8 @@ def _prepared(plan: AmgPlan, dtype: torch.dtype, device: torch.device,
               masked: bool):
     """Opt the kernel into its shared memory and check that its cluster
     can be resident, once per plan and device; raises if not."""
-    with cuda_band._on(device):
-        cuda_band._check(cuda_band._kernel_fn("amg_pcg_prepare", dtype)(
+    with cuda_band.on_device(device):
+        cuda_band.check_error(cuda_band.kernel_fn("amg_pcg_prepare", dtype)(
             plan.smem_bytes, int(masked)),
             f"amg_pcg ({CTAS}-CTA cluster, {plan.smem_bytes} B shared "
             "memory each)")
@@ -397,15 +397,15 @@ def amg_pcg(amg, band_op, b, x0, mask, iters):
     _prepared(plan, dtype, dev, masked)
     _, offs_c = cuda_band._check_offsets(band_op.offsets, amg.n)
     desc = _descriptor(plan, packed.goff, int(iters))
-    with cuda_band._on(dev):
+    with cuda_band.on_device(dev):
         x = torch.empty_like(b)
         r = torch.empty_like(b)
-        err = cuda_band._kernel_fn("amg_pcg", dtype)(
+        err = cuda_band.kernel_fn("amg_pcg", dtype)(
             desc, packed.cs, offs_c, len(band_op.offsets), plan.smem_bytes,
             band_op.band.data_ptr(), packed.tpack.data_ptr(),
             packed.ipack.data_ptr(), b.data_ptr(), x0.data_ptr(),
             None if mask is None else mask.data_ptr(), x.data_ptr(),
-            r.data_ptr(), cuda_band._stream(dev))
-    cuda_band._check(err, "amg_pcg")
+            r.data_ptr(), cuda_band.current_stream(dev))
+    cuda_band.check_error(err, "amg_pcg")
     cuda_band.LAUNCHES["amg_pcg"] += 1
     return x, r

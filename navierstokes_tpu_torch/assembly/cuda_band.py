@@ -47,9 +47,11 @@ from navierstokes_tpu_torch.utils import monitor
 
 _PKG = Path(__file__).resolve().parent.parent
 SOURCE = _PKG / "csrc" / "band.cu"
-# every source of the library: the band kernels and the AMG solve
-# (``cuda_amg.py``), compiled by one nvcc call
-SOURCES = (SOURCE, _PKG / "csrc" / "amg_pcg.cu")
+# every source of the library: the band kernels, the AMG solve
+# (``cuda_amg.py``) and the structured convection
+# (``structured/cuda_conv.py``), compiled by one nvcc call
+SOURCES = (SOURCE, _PKG / "csrc" / "amg_pcg.cu",
+           _PKG / "csrc" / "structured_conv.cu")
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -62,7 +64,8 @@ SMEM_PER_BLOCK = 232_448  # the opt-in shared memory of one sm_90 block
 SMEM_STATIC = 8_192       # reserved for the PCG kernels' static arrays
 
 LAUNCHES = monitor.counters("cuda_band.launches",
-                            ("circulant_apply", "circulant_pcg", "amg_pcg"))
+                            ("circulant_apply", "circulant_pcg", "amg_pcg",
+                             "structured_convection"))
 
 
 def reset_launch_counts() -> None:
@@ -161,26 +164,28 @@ def load_library() -> ctypes.CDLL:
 
 
 @functools.lru_cache(maxsize=None)
-def _kernel_fn(name: str, dtype: torch.dtype):
+def kernel_fn(name: str, dtype: torch.dtype):
     """The ctypes function ``ns_<name>_<f32|f64>``, resolved once."""
     suffix = "f32" if dtype == torch.float32 else "f64"
     return getattr(load_library(), f"ns_{name}_{suffix}")
 
 
-def _check(err: int, what: str) -> None:
+def check_error(err: int, what: str) -> None:
+    """Raises on a library entry point's non-zero CUDA error code."""
     if err != 0:
         msg = load_library().ns_error_string(err).decode()
         raise RuntimeError(f"{what} failed: CUDA error {err} ({msg})")
 
 
-def _on(device: torch.device):
+def on_device(device: torch.device):
     """``torch.cuda.device(device)`` unless it is the current device."""
     if device.index is None or device.index == torch.cuda.current_device():
         return contextlib.nullcontext()
     return torch.cuda.device(device)
 
 
-def _stream(device) -> int:
+def current_stream(device) -> int:
+    """The handle of ``device``'s current stream, for a launch."""
     return torch.cuda.current_stream(device).cuda_stream
 
 
@@ -264,12 +269,12 @@ def circulant_apply(band, offsets, x):
     n = band.shape[1]
     batch = x.numel() // n
     _check_index_range(len(offsets), n, batch)
-    fn = _kernel_fn("circulant_apply", x.dtype)
+    fn = kernel_fn("circulant_apply", x.dtype)
     y = torch.empty_like(x)
-    with _on(x.device):
+    with on_device(x.device):
         err = fn(band.data_ptr(), offs_c, len(offsets), x.data_ptr(),
-                 y.data_ptr(), n, batch, _stream(x.device))
-    _check(err, "circulant_apply")
+                 y.data_ptr(), n, batch, current_stream(x.device))
+    check_error(err, "circulant_apply")
     LAUNCHES["circulant_apply"] += 1
     return y
 
@@ -325,8 +330,8 @@ def _prepared(plan: PcgPlan, dtype: torch.dtype, device: torch.device,
               masked: bool):
     """Opt the plan's kernel into its shared memory and check that its
     CTAs can be co-resident, once per plan and device; raises if not."""
-    with _on(device):
-        _check(_kernel_fn("circulant_pcg_prepare", dtype)(
+    with on_device(device):
+        check_error(kernel_fn("circulant_pcg_prepare", dtype)(
             _ROUTE_CODE[plan.route], plan.ctas, plan.smem_bytes,
             int(masked)),
             f"circulant_pcg {plan.route} route ({plan.ctas} CTAs, "
@@ -431,8 +436,8 @@ def circulant_pcg(band, offsets, b, x0, inv_diag, maskv, iters, meanfree):
     masked = mask is not None
     plan = _prepared(pcg_plan(n, len(offsets), batch, dtype, masked), dtype,
                      dev, masked)
-    with _on(dev):
-        stream = _stream(dev)
+    with on_device(dev):
+        stream = current_stream(dev)
         scratch = None
         if plan.route == "grid":
             if torch.cuda.is_current_stream_capturing():
@@ -445,7 +450,7 @@ def circulant_pcg(band, offsets, b, x0, inv_diag, maskv, iters, meanfree):
                 scratch = _grid_scratch(plan, n, batch, dtype, dev, stream)
         x = torch.empty_like(b)
         r = torch.empty_like(b)
-        err = _kernel_fn("circulant_pcg", dtype)(
+        err = kernel_fn("circulant_pcg", dtype)(
             _ROUTE_CODE[plan.route], plan.ctas, plan.rows, plan.smem_bytes,
             int(plan.resident), band.data_ptr(), offs_c, len(offsets), n,
             batch, b.data_ptr(), x0.data_ptr(), inv_diag.data_ptr(),
@@ -454,6 +459,6 @@ def circulant_pcg(band, offsets, b, x0, inv_diag, maskv, iters, meanfree):
             0 if mask is None or mask.ndim == 1 else n,
             int(iters), int(bool(meanfree)), x.data_ptr(), r.data_ptr(),
             None if scratch is None else scratch.data_ptr(), stream)
-    _check(err, f"circulant_pcg ({plan.route} route)")
+    check_error(err, f"circulant_pcg ({plan.route} route)")
     LAUNCHES["circulant_pcg"] += 1
     return x, r

@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from navierstokes_tpu_torch import config
+from navierstokes_tpu_torch.structured import cuda_conv
 from navierstokes_tpu_torch.utils import monitor
 
 
@@ -133,6 +134,8 @@ class StructuredConvection:
                          .reshape(ntau, d * nq, nlu))     # (ntau, e nq, nlu)
         self.WN = t(sgrid.W_tau[:, None, :]
                     * space.N2.T[None, :, :])             # (ntau, nlu, nq)
+        # the kernels' packed tables, shifts and classes
+        self.tables = cuda_conv.build_tables(self)
 
     def gather_local(self, U):
         """(2^dim, *grid, d) -> (ntau, nlu, *grid, d) local values."""
@@ -156,7 +159,25 @@ class StructuredConvection:
     def __call__(self, U):
         """The convection of class grids ``U``; its device work is the
         phases ``convection.gather``, ``convection.quadrature`` and
-        ``convection.scatter``."""
+        ``convection.scatter``, in that order.
+
+        A CUDA tensor launches the gather-and-quadrature kernel in
+        ``convection.quadrature`` and the scatter kernel in
+        ``convection.scatter`` (``cuda_conv``), or raises;
+        ``convection.gather`` then holds no launch and ends at its start
+        mark (it reads 0).  A CPU tensor runs :meth:`plain`."""
+        if not U.is_cuda:
+            return self.plain(U)
+        with monitor.phase("convection.gather", empty=True):
+            pass
+        with monitor.phase("convection.quadrature"):
+            r = cuda_conv.quadrature(U, self.tables)
+        with monitor.phase("convection.scatter"):
+            return cuda_conv.scatter(r, self.tables)
+
+    def plain(self, U):
+        """The convection in plain torch: :meth:`gather_local`,
+        :meth:`quadrature` and :meth:`scatter_local`, one phase each."""
         with monitor.phase("convection.gather"):
             u_loc = self.gather_local(U)
         with monitor.phase("convection.quadrature"):

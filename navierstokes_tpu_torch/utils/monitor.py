@@ -244,7 +244,10 @@ class PhaseMarks:
     boundary takes one mark: work between the two counts to the later one
     (the steps' phases cover them whole, and so do the structured
     convection's).  A phase entered with ``joined=False`` marks its own
-    start, as a nested phase that follows no sibling does."""
+    start, as a nested phase that follows no sibling does.  A phase
+    entered with ``empty=True``, which holds no device work, ends at its
+    start: it reads 0 and takes no mark of its own where it joins a
+    sibling, one where it starts a level."""
 
     def __init__(self, device):
         self.cuda = torch.device(device).type == "cuda"
@@ -260,7 +263,7 @@ class PhaseMarks:
         return event
 
     @contextlib.contextmanager
-    def phase(self, name, joined=True):
+    def phase(self, name, joined=True, empty=False):
         depth = self._depth
         end = self._ends.pop(depth, None)
         start = end if joined and end is not None else self._mark()
@@ -269,7 +272,7 @@ class PhaseMarks:
             yield
         finally:
             self._depth -= 1
-            end = self._mark()
+            end = start if empty else self._mark()
             self.marks.append((name, start, end))
             # the phase's children end with it
             self._ends = {d: m for d, m in self._ends.items() if d < depth}
@@ -300,10 +303,11 @@ def device_marks(device):
         _MARKS = None
 
 
-def phase(name, joined=True):
+def phase(name, joined=True, empty=False):
     """Context of one phase of a step's device work: marked under
-    :func:`device_marks` (``joined``: see :class:`PhaseMarks`), a profiler
-    range while a profiler records, else the shared null context."""
+    :func:`device_marks` (``joined``, ``empty``: see :class:`PhaseMarks`),
+    a profiler range while a profiler records, else the shared null
+    context."""
     if _MARKS is not None:
-        return _MARKS.phase(name, joined)
+        return _MARKS.phase(name, joined, empty)
     return annotate(name)

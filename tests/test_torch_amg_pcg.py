@@ -173,7 +173,7 @@ def test_step_with_amg_matches_jax(masked, monkeypatch):
     np.testing.assert_allclose(rt.numpy(), np.asarray(rj), rtol=1e-6,
                                atol=1e-13)
     assert cuda_band.LAUNCHES == {"circulant_apply": 0, "circulant_pcg": 0,
-                                  "amg_pcg": 3}
+                                  "amg_pcg": 3, "structured_convection": 0}
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])

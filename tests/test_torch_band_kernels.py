@@ -211,7 +211,7 @@ def test_cpu_tensors_take_the_plain_versions():
                                          invd, 1.0, 3, False)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
     assert cuda_band.LAUNCHES == {"circulant_apply": 0, "circulant_pcg": 0,
-                                  "amg_pcg": 0}
+                                  "amg_pcg": 0, "structured_convection": 0}
 
 
 @pytest.mark.parametrize("dtype", [torch.float16, torch.bfloat16,

@@ -157,7 +157,7 @@ def test_3d_raw_steps_match(case):
     np.testing.assert_allclose(rt.numpy(), np.asarray(rj), rtol=1e-6,
                                atol=1e-13)
     assert cuda_band.LAUNCHES == {"circulant_apply": 0, "circulant_pcg": 0,
-                                  "amg_pcg": 0}
+                                  "amg_pcg": 0, "structured_convection": 0}
 
 
 _SOLVERS = {}

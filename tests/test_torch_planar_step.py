@@ -105,7 +105,7 @@ def test_step_matches_jax(n, case):
     assert np.isfinite(states["torch"][0].numpy()).all()
     # CPU tensors: every band matvec and solve took the plain versions
     assert cuda_band.LAUNCHES == {"circulant_apply": 0, "circulant_pcg": 0,
-                                  "amg_pcg": 0}
+                                  "amg_pcg": 0, "structured_convection": 0}
 
 
 def test_amg_poisson_is_not_ported():
@@ -129,7 +129,7 @@ def test_amg_poisson_is_not_ported():
     # stopped by the tolerance (1e-10 |b|) inside the 12 iterations
     assert float(res[1]) < 1e-8
     assert cuda_band.LAUNCHES == {"circulant_apply": 0, "circulant_pcg": 0,
-                                  "amg_pcg": 0}
+                                  "amg_pcg": 0, "structured_convection": 0}
     with pytest.raises(TypeError, match="engine"):
         build_planar_projection_step(fast.ops, visc=0.01, dt=1e-3,
                                      poisson_precond="amg")

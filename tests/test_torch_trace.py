@@ -196,6 +196,27 @@ def test_marks_leave_the_step_bitwise_equal(kind):
             pass
 
 
+def test_an_empty_phase_ends_at_its_start():
+    """A phase entered with ``empty=True`` ends at its start mark and
+    reads 0; a sibling after it starts there too, so it takes a mark of
+    its own only where it starts a level (the structured convection's
+    ``convection.gather`` on a card, whose work its kernels do)."""
+    with monitor.device_marks("cpu") as marks:
+        with monitor.phase("outer"):
+            with monitor.phase("gather", empty=True):
+                pass
+            with monitor.phase("quadrature"):
+                pass
+        with monitor.phase("next", empty=True):
+            pass
+    gather, quad, outer, after = [m[1:] for m in marks.marks]
+    assert gather[1] is gather[0] and quad[0] is gather[0]
+    assert after[0] is outer[1] and after[1] is after[0]
+    assert len({id(m) for _, *ends in marks.marks for m in ends}) == 4
+    ms = marks.ms()
+    assert ms["gather"] == 0.0 and ms["next"] == 0.0
+
+
 def test_profiler_sees_spans_and_phases_as_annotations():
     from torch.profiler import ProfilerActivity, profile
 
@@ -245,10 +266,10 @@ def test_launch_counts_are_a_registry_group():
     cuda_band.LAUNCHES["circulant_pcg"] += 1
     cuda_band.reset_launch_counts()
     assert cuda_band.LAUNCHES == {"circulant_apply": 0, "circulant_pcg": 0,
-                                  "amg_pcg": 0}
+                                  "amg_pcg": 0, "structured_convection": 0}
     advance, state = case("periodic")
     loop = ChunkLoop(advance, state, 2, device="cpu")
     loop.run()
     assert cuda_band.LAUNCHES == {"circulant_apply": 0, "circulant_pcg": 0,
-                                  "amg_pcg": 0}
+                                  "amg_pcg": 0, "structured_convection": 0}
     assert loop.captured_launches is None and loop.capture_seconds is None
