@@ -298,6 +298,7 @@ this, this, baseline.
 import argparse
 import contextlib
 import functools
+import importlib.util
 import io
 import json
 import math
@@ -316,7 +317,7 @@ import torch
 from torch.utils import _pytree as pytree
 from torch.utils._python_dispatch import TorchDispatchMode
 
-from navierstokes_tpu_torch import bench, native
+from navierstokes_tpu_torch import bench, cudalib, native
 from navierstokes_tpu_torch.assembly import cuda_amg, cuda_band
 from navierstokes_tpu_torch.assembly.fastop import (FastTaylorHood,
                                                     combine_circulant,
@@ -392,10 +393,6 @@ DEVICE = "cuda:0"
 # the 3D cavity's size (24^3 cells: 117,649 velocity and 15,625 pressure
 # nodes), whose band shapes the kernels phase also holds
 MESH3D_KERNEL_N = 24
-# NVIDIA H100 SXM data sheet: HBM3 bandwidth, and the peak rates outside
-# the tensor cores
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
 REPLACES = {
     "circulant_apply":
         "navierstokes_tpu/assembly/pallas_band.py:220 (pallas_call :106)",
@@ -411,6 +408,21 @@ CONV_LIMITS = {torch.float32: 1e-5, torch.float64: 1e-12}
 # the Poisson solve of the benchmark's march (cavity2d_128.march_graph):
 # AMG-preconditioned, 30 iterations, no tolerance
 AMG_ITERS = 30
+
+
+def load_file(name, path):
+    """The Python file ``path`` as a module named ``name``."""
+    spec = importlib.util.spec_from_file_location(name, path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+# the card's peaks and the work of the band kernels' operations: the
+# benchmark's own accounting, so that both read the same bounds
+_WORK = load_file("_bench_metrics_work", pathlib.Path(__file__).resolve()
+                  .parent / "benchmarks_torch" / "metrics" / "work.py")
+bound, apply_work, pcg_work = _WORK.bound, _WORK.apply_work, _WORK.pcg_work
 
 
 def emit(obj):
@@ -478,40 +490,6 @@ def device_ms(fn, kernel="circulant_"):
             return total / records / 1e3
     raise RuntimeError(f"torch.profiler recorded {records} of "
                        f"{PROFILE_LAUNCHES} kernel launches, three times")
-
-
-def bound(bytes_moved, flops, dtype):
-    """(bound_ms, bound_by): the least time for the work at the card's
-    peak memory rate and peak rate for ``dtype``."""
-    t_bytes = bytes_moved / PEAK_BYTES_PER_S
-    t_ops = flops / PEAK_FLOPS[dtype]
-    return 1e3 * max(t_bytes, t_ops), \
-        "bytes" if t_bytes >= t_ops else "operations"
-
-
-def apply_work(K, n, batch, esize):
-    """Bytes (band, x and y once each) and FLOPs of one band apply."""
-    return (K * n + 2 * batch * n) * esize, 2 * K * n * batch
-
-
-def pcg_work(case):
-    """Bytes (each input read once, x and r written once) and FLOPs of one
-    whole solve with these arguments, counted per row as _pcg does the
-    work: each iteration a matvec (2K; masked 5 more: m*v before, and
-    m*w + (1-m)*v after), two dot products and the x, r, z and p updates
-    (11; masked 1 more, mean-free 2 more); the setup counts as one more
-    iteration."""
-    band, _, b, x0, invd, maskv, iters, meanfree = case
-    K, n = band.shape
-    rows = b.numel()
-    masked = torch.is_tensor(maskv)
-    esize = b.element_size()
-    nbytes = band.numel() + 4 * rows + invd.numel() + \
-        (maskv.numel() if masked else 0)
-    matvec = 2 * K + (5 if masked else 0)
-    per_iter = matvec + 11 + (1 if masked else 0) + (2 if meanfree else 0)
-    flops = rows * ((iters + 1) * per_iter)
-    return nbytes * esize, flops
 
 
 def spd_case(kind, dtype, dev, n=4096, W=128):
@@ -699,8 +677,8 @@ def phase_device():
 
 def phase_build():
     t0 = time.perf_counter()
-    path, log = cuda_band.build_library()
-    cuda_band.load_library()
+    path, log = cudalib.build_library()
+    cudalib.load_library()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "library": os.path.relpath(path),
           "ptxas": [ln.strip() for ln in log.splitlines()
@@ -1124,15 +1102,23 @@ def phase_timing(st, subs32, smi, launches_per_step):
 
 def phase_baseline(st, subs32, smi, baseline_dir):
     """The kernels of another checkout against this one on the same
-    inputs, in the order baseline, this, this, baseline."""
-    import importlib.util
+    inputs, in the order baseline, this, this, baseline.  The other
+    checkout's ``cuda_band.py`` is loaded by path and bound to its own
+    kernel library: its ``cudalib.py``, where it has one, stands in for
+    this package's while the wrapper loads."""
+    import navierstokes_tpu_torch as pkg
 
-    path = os.path.join(baseline_dir, "navierstokes_tpu_torch", "assembly",
-                        "cuda_band.py")
-    spec = importlib.util.spec_from_file_location("baseline_cuda_band", path)
-    base = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(base)
-    base.load_library()
+    root = os.path.join(baseline_dir, "navierstokes_tpu_torch")
+    lib = None
+    if os.path.exists(os.path.join(root, "cudalib.py")):
+        lib = load_file("baseline_cudalib", os.path.join(root, "cudalib.py"))
+        pkg.cudalib = lib
+    try:
+        base = load_file("baseline_cuda_band",
+                         os.path.join(root, "assembly", "cuda_band.py"))
+    finally:
+        pkg.cudalib = cudalib
+    (base if lib is None else lib).load_library()
     M = st.fast32.M
     xM = torch.tensor(np.random.default_rng(8).standard_normal((2, M.n)),
                       dtype=torch.float32, device=st.dev)
@@ -1214,10 +1200,10 @@ def phase_main(st, smi, profile_dir):
     loops, launches = {}, {}
     for loop in ("dispatch", "scan"):
         report = {}
-        cuda_band.reset_launch_counts()
+        cudalib.reset_launch_counts()
         result = bench.bench_generic(st.space, st.u0, st.p0, loop=loop,
                                      device=st.dev, report=report)
-        launches[loop] = dict(cuda_band.LAUNCHES)
+        launches[loop] = dict(cudalib.LAUNCHES)
         loops[loop] = dict(bench_row(result, st.space.n_dofs, report),
                            launches=launches[loop])
         if loop == "dispatch":
@@ -1232,9 +1218,9 @@ def phase_main(st, smi, profile_dir):
             if launches[loop][name] <= 0:
                 raise AssertionError(f"{name} was not launched by the main "
                                      f"path's {loop} loop")
-    want = {"circulant_apply": 3 * bench.CHUNK,
-            "circulant_pcg": 3 * bench.CHUNK, "amg_pcg": 0,
-            "structured_convection": 0}
+    want = dict(dict.fromkeys(cudalib.LAUNCHES, 0),
+                circulant_apply=3 * bench.CHUNK,
+                circulant_pcg=3 * bench.CHUNK)
     if loops["scan"]["captured_launches"] != want:
         raise AssertionError(f"captured launches "
                              f"{loops['scan']['captured_launches']}, "
@@ -1290,7 +1276,7 @@ def graph_case(advance, state0, dev):
     n = bench.CHUNK
     eager = eager_chunk(advance, state0, n)
     again = eager_chunk(advance, state0, n)
-    cuda_band.reset_launch_counts()
+    cudalib.reset_launch_counts()
     loop = ChunkLoop(advance, state0, n, dev)
     graph = loop.run()
     torch.cuda.synchronize()
@@ -1437,10 +1423,10 @@ def phase_bench(smi):
     """``python -m navierstokes_tpu_torch.bench``'s main at its defaults
     (128^2, scan loop, f32), in process: its JSON line, every path
     non-zero and free of errors.  Returns the launch counts of its run."""
-    cuda_band.reset_launch_counts()
+    cudalib.reset_launch_counts()
     with contextlib.redirect_stdout(io.StringIO()):
         record = bench.main()
-    launches = dict(cuda_band.LAUNCHES)
+    launches = dict(cudalib.LAUNCHES)
     emit({"phase": "bench", "line": record, "launches": launches,
           "nvidia_smi": smi})
     failed = {k: v for k, v in record["paths"].items()
@@ -1543,11 +1529,11 @@ def phase_structured(ss, smi, profile_dir):
     for loop in ("dispatch", "scan"):
         torch.cuda.reset_peak_memory_stats()
         report = {}
-        cuda_band.reset_launch_counts()
+        cudalib.reset_launch_counts()
         result = bench.bench_structured(space, ss.u0, ss.p0, loop=loop,
                                         n_steps=cfg["steps"], device=ss.dev,
                                         report=report)
-        launches[loop] = dict(cuda_band.LAUNCHES)
+        launches[loop] = dict(cudalib.LAUNCHES)
         loops[loop] = dict(bench_row(result, space.n_dofs, report),
                            peak_device_bytes=torch.cuda.max_memory_allocated(),
                            launches=launches[loop])
@@ -1564,7 +1550,7 @@ def phase_structured(ss, smi, profile_dir):
           "nvidia_smi": smi})
     for loop, row in loops.items():
         check_bench_row(ss.name, loop, row)
-    none = dict.fromkeys(cuda_band.LAUNCHES, 0)
+    none = dict.fromkeys(cudalib.LAUNCHES, 0)
     want = {"dispatch": dict(none, structured_convection=bench.N_WARMUP
                              + cfg["steps"]),
             "scan": dict(none, structured_convection=bench.CHUNK)}
@@ -1898,14 +1884,14 @@ def setup_seconds(solver):
 def timed_steps(solver, ts, n_steps):
     """N_WARMUP steps, then ``n_steps`` on the host clock between two
     synchronisations, with the launch counts of all of them."""
-    cuda_band.reset_launch_counts()
+    cudalib.reset_launch_counts()
     advance(solver, ts, N_WARMUP)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     advance(solver, ts, n_steps)
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
-    return elapsed, dict(cuda_band.LAUNCHES)
+    return elapsed, dict(cudalib.LAUNCHES)
 
 
 def solver_busy(solver, ts, ms_per_step):
@@ -2440,12 +2426,12 @@ def phase_problem_cavity(dev, smi, cavity_ms, profile_dir):
             dtype=torch.float32,
             solver_options={"cg_rtol": SOLVER["cg_rtol"]})
         problem.instrument(N_WARMUP, n_steps, N_BUSY)
-        cuda_band.reset_launch_counts()
+        cudalib.reset_launch_counts()
         t0 = time.perf_counter()
         lines = run_quietly(problem)
         busy = problem.finish_profile()
         total = time.perf_counter() - t0
-        launches = dict(cuda_band.LAUNCHES)
+        launches = dict(cudalib.LAUNCHES)
         out = output_files(os.path.join(tmp, "results"))
         solver = problem._get_solver()
         guards = cavity_guards(solver, "problem_cavity")
@@ -2572,11 +2558,11 @@ def phase_dfg(dev, smi, profile_dir):
             mesh_t["mesh"] = time.perf_counter() - t
 
         problem.setup_mesh = timed_mesh
-        cuda_band.reset_launch_counts()
+        cudalib.reset_launch_counts()
         lines = run_quietly(problem)
         busy = problem.finish_profile()
         total = time.perf_counter() - t0
-        launches = dict(cuda_band.LAUNCHES)
+        launches = dict(cudalib.LAUNCHES)
     solver = problem._get_solver()
     ms = problem.ms_per_step()
     t_read = time.perf_counter()
@@ -2649,9 +2635,9 @@ def dfg_run(device, n_steps, resume=None, checkpoint_dir=None):
             problem.set_solver_class(resumed_solver(resume))
         if checkpoint_dir:
             problem._checkpoint_frequency = n_steps
-        cuda_band.reset_launch_counts()
+        cudalib.reset_launch_counts()
         run_quietly(problem)
-        launches = dict(cuda_band.LAUNCHES)
+        launches = dict(cudalib.LAUNCHES)
     solver = problem._get_solver()
     u, p = solver.space.split(solver.solution.cpu())
     forces = torch.tensor(np.asarray(problem.materialize_coefficients()))
@@ -2834,7 +2820,7 @@ def phase_newton_dfg(dev, smi, profile_dir):
     """DFG 2D-1 at resolution 3 through the Picard->Newton solver with the
     Jacobian assembled on the card and factored by SuperLU on the host."""
     g = NEWTON_DFG_GUARDS
-    cuda_band.reset_launch_counts()
+    cudalib.reset_launch_counts()
     t0 = time.perf_counter()
     solver, bm = dfg_steady_solver(NEWTON["dfg_res"], dev, tol=1e-10,
                                    linear_solver="host_lu")
@@ -2848,7 +2834,7 @@ def phase_newton_dfg(dev, smi, profile_dir):
     with timed_host_lu(timer), contextlib.redirect_stdout(io.StringIO()):
         solver.solve()
     solve_s = time.perf_counter() - t0
-    launches = dict(cuda_band.LAUNCHES)
+    launches = dict(cudalib.LAUNCHES)
     rec = nonlinear_record(solver)
     force = 50.0 * np.asarray(solver.boundary_reaction_force(bm["cylinder"]))
     cd, cl = float(force[0]), float(force[1])
@@ -3030,7 +3016,7 @@ def phase_newton_cavity(dev, smi, profile_dir):
     """The cavity demo as a StationaryProblem at 64^2 with the card's own
     linear mode: matrix-free PCD + FGMRES + AMG, no factorization."""
     n, re = NEWTON["cavity_n"], NEWTON["cavity_re"]
-    cuda_band.reset_launch_counts()
+    cudalib.reset_launch_counts()
     amg_s = []
     with tempfile.TemporaryDirectory() as tmp:
         problem = NewtonCavity(tmp, n, re, device=dev, dtype=torch.float64)
@@ -3040,7 +3026,7 @@ def phase_newton_cavity(dev, smi, profile_dir):
                 io.StringIO()):
             _, syncs = count_syncs(problem.solve_problem)
         seconds = time.perf_counter() - t0
-    launches = dict(cuda_band.LAUNCHES)
+    launches = dict(cudalib.LAUNCHES)
     solver = problem._get_solver()
     mode = solver._resolved_linear_mode()
     solves = [r for r in solver.monitor.records
@@ -3134,7 +3120,7 @@ def phase_bdf_dfg(dev, smi, profile_dir):
     """DFG 2D-2 through the monolithic BDF-2 solver on the card, 100 steps
     with the reaction force every step."""
     n_steps, dt = NEWTON["bdf_steps"], NEWTON["bdf_dt"]
-    cuda_band.reset_launch_counts()
+    cudalib.reset_launch_counts()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(io.StringIO()):
         solver, ts, cyl = dfg_monolithic_solver(dev)
@@ -3152,7 +3138,7 @@ def phase_bdf_dfg(dev, smi, profile_dir):
         solver.advance_time()
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
-    launches = dict(cuda_band.LAUNCHES)
+    launches = dict(cudalib.LAUNCHES)
     its = [r["iterations"] for r in solver.monitor.records
            if r["kind"] == "nonlinear_solve"]
     ms = 1e3 * elapsed / n_steps
@@ -3248,7 +3234,7 @@ def phase_newton_parity(dev):
              "imex_sbdf2": (True, ("IMEXSolver", "SBDF2",
                                    {"linear_solver": "host_lu"})),
              "ipcs": (False, ("IPCSSolver", None, {}))}
-    cuda_band.reset_launch_counts()
+    cudalib.reset_launch_counts()
     out, bad = {}, []
     saved = os.environ.get("NS_TPU_FGMRES_RESTART")
     # restart cycles of 20: the default 80 costs the CPU side minutes
@@ -3284,7 +3270,7 @@ def phase_newton_parity(dev):
             os.environ.pop("NS_TPU_FGMRES_RESTART")
         else:
             os.environ["NS_TPU_FGMRES_RESTART"] = saved
-    launches = dict(cuda_band.LAUNCHES)
+    launches = dict(cudalib.LAUNCHES)
     emit({"phase": "newton_parity",
           "config": f"cavity {n}^2 Re 100 f64, card vs CPU; transient "
                     f"solvers {steps} steps of 0.02; pcd restart "
@@ -3494,7 +3480,7 @@ def phase_duct3d(dev, smi):
     n_steps = MESH3D["duct_steps"]
     t0 = time.perf_counter()
     solver, ts = make_duct(dev, torch.float64, MESH3D["duct"])
-    cuda_band.reset_launch_counts()
+    cudalib.reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
     advance(solver, ts)
     torch.cuda.synchronize()
@@ -3504,7 +3490,7 @@ def phase_duct3d(dev, smi):
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t1
     peak = torch.cuda.max_memory_allocated()
-    launches = dict(cuda_band.LAUNCHES)
+    launches = dict(cudalib.LAUNCHES)
     space = solver.space
     u, _ = space.split(solver.solution)
     err = float(np.abs(u.cpu().numpy()
@@ -3572,7 +3558,7 @@ def phase_shell3d(dev, smi, profile_dir):
     n, n_steps = MESH3D["shell_n"], MESH3D["shell_steps"]
     t0 = time.perf_counter()
     solver, ts = make_shell(n, dev, torch.float32, MESH3D["shell_dt"])
-    cuda_band.reset_launch_counts()
+    cudalib.reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
     t1 = time.perf_counter()
     advance(solver, ts)
@@ -3590,7 +3576,7 @@ def phase_shell3d(dev, smi, profile_dir):
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t2
     peak = torch.cuda.max_memory_allocated()
-    launches = dict(cuda_band.LAUNCHES)
+    launches = dict(cudalib.LAUNCHES)
     ms = 1e3 * elapsed / (n_steps - 1)
     # the state after n_steps, for halo_shell's comparison
     state = (solver._u.clone(), solver._p.clone())
@@ -3736,7 +3722,7 @@ def phase_bfs(dev, smi):
     """demo/backward_facing_step.py's StationaryProblem on the card (f64,
     host LU) on the built-in mesh and on the shipped gmsh mesh; returns
     (launches, the built-in mesh's solver)."""
-    cuda_band.reset_launch_counts()
+    cudalib.reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
     out, solvers = {}, {}
     geo = os.path.join(os.path.dirname(os.path.abspath(__file__)), "meshes",
@@ -3758,7 +3744,7 @@ def phase_bfs(dev, smi):
                      "recirculation_length": recirculation_length(solver),
                      "xdmf_inline_round_trip": xdmf_round_trip(
                          solver.space.mesh, solver._boundary_markers)}
-    launches = dict(cuda_band.LAUNCHES)
+    launches = dict(cudalib.LAUNCHES)
     emit({"phase": "bfs",
           "config": "backward-facing step, Re 50, f64, StationaryProblem "
                     "(demo/backward_facing_step.py), linear_solver host_lu",
@@ -3776,7 +3762,7 @@ def phase_bfs(dev, smi):
 def phase_blasius(dev, smi):
     """demo/blasius_flow.py's StationaryProblem on the card (f64, host
     LU)."""
-    cuda_band.reset_launch_counts()
+    cudalib.reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
     problem = blasius_flow.BlasiusFlowProblem(
         None, device=dev, dtype=torch.float64,
@@ -3787,7 +3773,7 @@ def phase_blasius(dev, smi):
     x = solver.space.u_coords
     plate = (np.abs(x[:, 1] - 0.5) < 1e-12) & (x[:, 0] > -1e-12) \
         & (x[:, 0] < 1 + 1e-12)
-    launches = dict(cuda_band.LAUNCHES)
+    launches = dict(cudalib.LAUNCHES)
     out = {"phase": "blasius",
            "config": "flat plate, Re 200, f64, StationaryProblem "
                      "(demo/blasius_flow.py), linear_solver host_lu",
@@ -3812,7 +3798,7 @@ def phase_mesh3d_parity(dev, smi, bfs_card):
     band budget no format meets), and the backward-facing step's
     stationary solution."""
     steps = MESH3D["parity_steps"]
-    cuda_band.reset_launch_counts()
+    cudalib.reset_launch_counts()
     out = {}
     for name, build in (
             ("cavity3d", lambda d: make_cavity3d(
@@ -3840,7 +3826,7 @@ def phase_mesh3d_parity(dev, smi, bfs_card):
         want = "fast" if name == "cavity3d" else "generic"
         if kinds != [want, want]:
             raise AssertionError(f"mesh3d_parity {name}: step kinds {kinds}")
-    launches = dict(cuda_band.LAUNCHES)
+    launches = dict(cudalib.LAUNCHES)
     cpu, _, _ = solve_stationary(bfs_problem("cpu"), "bfs (CPU)")
     out["bfs"] = {"x": rel_err(bfs_card.solution, cpu.solution)}
     emit({"phase": "mesh3d_parity",
@@ -3924,7 +3910,7 @@ def phase_halo_shell(dev, smi, reference):
     same steps (``reference``: shell3d's (u, p), or None to run it)."""
     n, n_steps = MESH3D["shell_n"], MESH3D["shell_steps"]
     mesh = shard_mesh(dev)
-    cuda_band.reset_launch_counts()
+    cudalib.reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     solver, ts = make_shell(n, dev, torch.float32, MESH3D["shell_dt"],
@@ -3959,7 +3945,7 @@ def phase_halo_shell(dev, smi, reference):
         advance(solver, ts)
     torch.cuda.synchronize()
     deviation, n_eq = shell_deviation(solver)
-    launches = dict(cuda_band.LAUNCHES)
+    launches = dict(cudalib.LAUNCHES)
     space = solver.space
     emit({"phase": "halo_shell",
           "config": f"shell3d's spherical Couette flow (spherical_shell(3, "
@@ -4001,7 +3987,7 @@ def phase_spectral_sharded(dev, smi):
     n, n_steps = MULTIDEVICE["spectral_n"], MULTIDEVICE["spectral_steps"]
     t_start = time.perf_counter()
     mesh = shard_mesh(dev)
-    cuda_band.reset_launch_counts()
+    cudalib.reset_launch_counts()
     runs = {}
     for name, kw in (("sharded", {"device_mesh": mesh}), ("one_device", {})):
         torch.cuda.reset_peak_memory_stats()
@@ -4019,7 +4005,7 @@ def phase_spectral_sharded(dev, smi):
                       / expected,
                       "finite": bool(torch.isfinite(solver.solution).all()),
                       "peak_device_bytes": torch.cuda.max_memory_allocated()}
-    launches = dict(cuda_band.LAUNCHES)
+    launches = dict(cudalib.LAUNCHES)
     sharded = runs["sharded"].pop("solver")
     one = runs["one_device"].pop("solver")
     diff = state_diff(sharded, (one._u, one._p))
@@ -4053,7 +4039,7 @@ def phase_stationary_sharded(dev, smi):
 
     n, re = MULTIDEVICE["stationary_n"], MULTIDEVICE["stationary_re"]
     mesh = shard_mesh(dev)
-    cuda_band.reset_launch_counts()
+    cudalib.reset_launch_counts()
     out, solvers = {}, {}
     # "pcd" is the card's default mode with or without a mesh; named here
     # so that both runs take it on any device
@@ -4081,7 +4067,7 @@ def phase_stationary_sharded(dev, smi):
                      "residual": solves[-1]["residual"],
                      "fgmres_matvecs_per_linear_solve": lin}
         solvers[name] = solver
-    launches = dict(cuda_band.LAUNCHES)
+    launches = dict(cudalib.LAUNCHES)
     sharded = solvers["sharded"]
     diff = rel_err(sharded.solution, solvers["one_device"].solution)
     emit({"phase": "stationary_sharded",
@@ -4213,7 +4199,7 @@ def phase_multidevice_parity(dev, smi):
     t_start = time.perf_counter()
     mesh, cpu_mesh = shard_mesh(dev), shard_mesh(torch.device("cpu"))
     one_mesh = shard_mesh(dev, 1)
-    cuda_band.reset_launch_counts()
+    cudalib.reset_launch_counts()
     rows = {}
     # the halo step: a 3D box (the lid-driven cavity) and the shell
     for name, (mesh_bcs, visc, dt) in {
@@ -4281,14 +4267,14 @@ def phase_multidevice_parity(dev, smi):
 
     rows["newton_jvp"] = parity_row(jvp(dev, mesh), jvp(dev, mesh),
                                     jvp("cpu", cpu_mesh), jvp(dev, None))
-    launches = dict(cuda_band.LAUNCHES)
+    launches = dict(cudalib.LAUNCHES)
     # the crossing's one-device leg is the channel's banded step
     # (solver_parity's case), which applies its bands; counted apart
-    cuda_band.reset_launch_counts()
+    cudalib.reset_launch_counts()
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
         ckpt, kinds_ok = checkpoint_crossing(dev, mesh, tmp)
-    ckpt["one_device_leg_launches"] = dict(cuda_band.LAUNCHES)
+    ckpt["one_device_leg_launches"] = dict(cudalib.LAUNCHES)
     ckpt["seconds"] = time.perf_counter() - t0
     emit({"phase": "multidevice_parity",
           "config": f"f64, {steps} steps: the halo step on the 3D cavity "
@@ -4519,7 +4505,7 @@ def phase_demo_gravity(dev, smi):
     """demo/gravity_driven_flow.py (the port's demo class) at the shipped
     n = 50, f64, host LU, its output into a temporary directory."""
     n = APPS["gravity_n"]
-    cuda_band.reset_launch_counts()
+    cudalib.reset_launch_counts()
     with tempfile.TemporaryDirectory() as tmp:
         problem = gravity_driven_flow.GravityDrivenFlowProblem(
             n, tmp, device=dev, dtype=torch.float64,
@@ -4529,7 +4515,7 @@ def phase_demo_gravity(dev, smi):
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         files = output_files(os.path.join(tmp, "results"))
-    launches = dict(cuda_band.LAUNCHES)
+    launches = dict(cudalib.LAUNCHES)
     solver = problem._get_solver()
     solves = [r for r in solver.monitor.records
               if r["kind"] == "nonlinear_solve"]
@@ -4569,7 +4555,7 @@ def phase_demo_taylor_green(dev, smi):
     on the 32^2 torus, 100 steps to t = 1), f64, its output every 10 steps
     into a temporary directory; L2(u) against the analytic decay."""
     options = {"linear_solver": APPS["taylor_green_linear_solver"]}
-    cuda_band.reset_launch_counts()
+    cudalib.reset_launch_counts()
     with tempfile.TemporaryDirectory() as tmp:
         problem = ClockedTaylorGreen(tmp, device=dev, dtype=torch.float64,
                                      solver_options=options)
@@ -4578,7 +4564,7 @@ def phase_demo_taylor_green(dev, smi):
         loop_s = problem.loop_seconds()
         seconds = time.perf_counter() - t0
         files = output_files(os.path.join(tmp, "results"))
-    launches = dict(cuda_band.LAUNCHES)
+    launches = dict(cudalib.LAUNCHES)
     solver, ts = problem._get_solver(), problem._time_stepping
     u, _ = solver.space.split(solver.solution)
     t = ts.current_time
@@ -4612,7 +4598,7 @@ def phase_demo_periodic_box_3d(dev, smi):
     """demo/periodic_box_3d.py (the port's demo class) at its shipped 16^3
     and 50 steps, f32, on the spectral step: max|u| against the analytic
     decay of the shear wave."""
-    cuda_band.reset_launch_counts()
+    cudalib.reset_launch_counts()
     with tempfile.TemporaryDirectory() as tmp:
         problem = ClockedPeriodicBox(tmp, device=dev, dtype=torch.float32,
                                      solver_options={"cg_rtol": 1e-6})
@@ -4620,7 +4606,7 @@ def phase_demo_periodic_box_3d(dev, smi):
         lines = run_quietly(problem)
         loop_s = problem.loop_seconds()
         seconds = time.perf_counter() - t0
-    launches = dict(cuda_band.LAUNCHES)
+    launches = dict(cudalib.LAUNCHES)
     solver, ts = problem._get_solver(), problem._time_stepping
     amp, expected = periodic_box_3d.amplitude(problem)
     err = abs(amp - expected) / expected
@@ -4647,7 +4633,7 @@ def run_study(dev, n, levels, solver, options):
     """convergence_test/taylor_green_vortex.py's main (the port's) in f64,
     quietly, in a temporary directory (it may write its plot there):
     ``(dts, u_errors, p_errors, seconds, steps, launches)``."""
-    cuda_band.reset_launch_counts()
+    cudalib.reset_launch_counts()
     with tempfile.TemporaryDirectory() as tmp, contextlib.chdir(tmp), \
             contextlib.redirect_stdout(io.StringIO()):
         t0 = time.perf_counter()
@@ -4657,7 +4643,7 @@ def run_study(dev, n, levels, solver, options):
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
     steps = sum(round(1.0 / dt) for dt in dts)
-    return dts, eu, ep, seconds, steps, dict(cuda_band.LAUNCHES)
+    return dts, eu, ep, seconds, steps, dict(cudalib.LAUNCHES)
 
 
 def phase_convergence(dev, smi):

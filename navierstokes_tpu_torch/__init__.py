@@ -1,7 +1,7 @@
 """navierstokes_tpu_torch -- the PyTorch/CUDA port of ``navierstokes_tpu``.
 
 The port mirrors the JAX package's module paths so that each function has
-an obvious counterpart.  Ported so far are the two projection steps (the
+an obvious counterpart.  It holds the two projection steps (the
 generic banded SBDF-2 step on 2D structured boxes, periodic or
 wall-bounded; the structured spectral step in 2D and 3D), the
 time-stepping bookkeeping, the product solver API for transient flow
@@ -20,13 +20,14 @@ the g++ mesh helper and the shipped applications:
                  (``dirichlet``)
     assembly/    host assembly (NumPy/SciPy f64) and the device operator
                  formats (``fastop``: circulant and affine bands, stencil
-                 and gather couplings), the two hand-written CUDA band
-                 kernels (``cuda_band``, sources in ``csrc/band.cu``), the
+                 and gather couplings), the wrappers of the CUDA band and
+                 AMG-PCG kernels (``cuda_band``, ``cuda_amg``), the
                  element kernels and their Jacobians, the operators
                  (``MixedOperator``, ``VelocityOperator``), static CSR
                  assembly (``sparse``) and the host f64 residual
-    linalg/      Krylov solvers, FGMRES, direct solves, the Newton loop,
-                 the smoothed-aggregation AMG and the PCD preconditioners
+    linalg/      Krylov solvers, the steps' PCG (``pcg``), FGMRES, direct
+                 solves, the Newton loop, the smoothed-aggregation AMG and
+                 the PCD preconditioners
     solvers/     the planar projection step (``planar_step``), the solver
                  bases, ``ProjectionSolver``, ``StationarySolver``,
                  ``ImplicitBDFSolver``, ``ThetaSolver``, ``IMEXSolver``,
@@ -50,6 +51,8 @@ the g++ mesh helper and the shipped applications:
     demo/        the repository's demo scripts as modules with a ``main``
                  (``python -m navierstokes_tpu_torch.demo.cavity_flow``)
     convergence_test/  the Taylor-Green temporal convergence study
+    cudalib.py   the library of the hand-written CUDA kernels
+                 (``csrc/*.cu``): build, entry points, launch counts
     setups.py    the benchmark's initial states (2D Taylor-Green vortex,
                  3D shear wave) and the lid-driven cavity and channel
 

@@ -1,15 +1,14 @@
 """The AMG-preconditioned Poisson CG of the planar step in one CUDA launch.
 
-:func:`amg_pcg` runs ``iters`` iterations of
-``solvers/planar_step._pcg(A', b, x0, iters, project=P,
-precond_fn=amg.apply)`` -- with ``A' v = m*L(m*v) + (1-m)*v`` and
-``P r = m*r`` for a mask ``m``, ``A' = L`` and ``P r = r - mean(r)``
-without one -- for the hierarchy ``amg`` that
+:func:`amg_pcg` runs ``iters`` iterations of ``linalg/pcg.pcg(A', b, x0,
+iters, project=P, precond_fn=amg.apply)`` -- with ``A' v = m*L(m*v) +
+(1-m)*v`` and ``P r = m*r`` for a mask ``m``, ``A' = L`` and ``P r = r -
+mean(r)`` without one -- for the hierarchy ``amg`` that
 ``planar_step.build_poisson_amg`` builds on the ``CirculantBand`` ``L``.
 It returns ``(x, r)`` as ``cuda_band.circulant_pcg`` does.  On a CUDA
 tensor it launches ``csrc/amg_pcg.cu::amg_pcg_cluster_kernel`` (built into
-``cuda_band``'s library) or raises; on a CPU tensor it runs
-:func:`amg_pcg_plain`, that ``_pcg`` call itself.
+the kernel library, ``cudalib.py``) or raises; on a CPU tensor it runs
+:func:`amg_pcg_plain`, that ``pcg`` call itself.
 
 :func:`amg_pcg_plan`, a pure function of the hierarchy's shapes, lays the
 solve out in one 16-CTA cluster's shared memory: the fewest levels
@@ -17,8 +16,8 @@ distributed (each CTA owns ``ceil(n / 16)`` contiguous rows of each), the
 levels below them and the coarse pseudo-inverse replicated in every CTA.
 It returns None when no layout fits.  :func:`prepare`, called where the
 step is built, decides once whether a hierarchy takes the kernel and
-packs it (the only host reads); the step then keeps ``_pcg`` where it
-answers None.  Launches count under ``cuda_band.LAUNCHES["amg_pcg"]``.
+packs it (the only host reads); the step then keeps ``pcg`` where it
+answers None.  Launches count under ``cudalib.LAUNCHES["amg_pcg"]``.
 """
 
 from __future__ import annotations
@@ -32,9 +31,10 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from navierstokes_tpu_torch.assembly import cuda_band
+from navierstokes_tpu_torch import cudalib
 from navierstokes_tpu_torch.assembly.fastop import CirculantBand
 from navierstokes_tpu_torch.linalg.amg import AMG, _DeviceDense
+from navierstokes_tpu_torch.linalg.pcg import pcg
 
 CTAS = 16             # kCtas in amg_pcg.cu
 THREADS = 1024        # kThreads
@@ -111,7 +111,7 @@ def amg_pcg_plan(shape: Shape, dtype: torch.dtype,
     swidths = [shape.swidth] + [lv[2] for lv in shape.levels]
     halos = [shape.halo] + [lv[3] for lv in shape.levels]
     reaches = [shape.reach] + [lv[4] for lv in shape.levels]
-    budget = cuda_band.SMEM_PER_BLOCK - SMEM_STATIC
+    budget = cudalib.SMEM_PER_BLOCK - SMEM_STATIC
     # fewer distributed levels first (each costs 4 cluster barriers per
     # iteration), the coarse pseudo-inverse in shared memory before in L2
     for ndist, pinv_shared in itertools.product(range(1, nlev + 1),
@@ -311,10 +311,8 @@ def prepare(amg, band_op, dtype: torch.dtype, masked: bool) -> AMG | None:
 
 
 def amg_pcg_plain(amg, band_op, b, x0, mask, iters):
-    """``(x, r)`` after ``iters`` AMG-preconditioned CG steps: ``_pcg``
+    """``(x, r)`` after ``iters`` AMG-preconditioned CG steps: ``pcg``
     with ``amg.apply``, as ``_step_core`` calls it."""
-    from navierstokes_tpu_torch.solvers.planar_step import _pcg
-
     if mask is None:
         def matvec(v):
             return band_op.apply(v)
@@ -328,8 +326,16 @@ def amg_pcg_plain(amg, band_op, b, x0, mask, iters):
         def project(r):
             return mask * r
 
-    return _pcg(matvec, b, x0, int(iters), project=project,
-                precond_fn=amg.apply)
+    return pcg(matvec, b, x0, int(iters), project=project,
+               precond_fn=amg.apply)
+
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# ns_amg_pcg_prepare_<f32|f64>(smem, masked)
+PREPARE_ARGS = (_I, _I)
+# ns_amg_pcg_<f32|f64>(desc, cs, offs, K, smem, band, tpack, ipack, b, x0,
+# mask, x, r, stream)
+AMG_PCG_ARGS = (_P, _P, _P, _I, _I) + (_P,) * 9
 
 
 @functools.lru_cache(maxsize=16)
@@ -337,9 +343,10 @@ def _prepared(plan: AmgPlan, dtype: torch.dtype, device: torch.device,
               masked: bool):
     """Opt the kernel into its shared memory and check that its cluster
     can be resident, once per plan and device; raises if not."""
-    with cuda_band.on_device(device):
-        cuda_band.check_error(cuda_band.kernel_fn("amg_pcg_prepare", dtype)(
-            plan.smem_bytes, int(masked)),
+    prepare = cudalib.entry("amg_pcg_prepare", dtype, PREPARE_ARGS)
+    with cudalib.on_device(device):
+        cudalib.check_error(
+            prepare(plan.smem_bytes, int(masked)),
             f"amg_pcg ({CTAS}-CTA cluster, {plan.smem_bytes} B shared "
             "memory each)")
     return plan
@@ -370,7 +377,7 @@ def _validate(amg, band_op, b, x0, mask, iters):
              "hierarchy": amg.coarse_inv}
     if mask is not None:
         named["mask"] = mask
-    cuda_band._check_tensors(named, b.device, b.dtype)
+    cudalib.check_tensors(named, b.device, b.dtype)
     if int(iters) < 0:
         raise ValueError(f"iters must be >= 0, got {iters}")
 
@@ -395,17 +402,18 @@ def amg_pcg(amg, band_op, b, x0, mask, iters):
         raise ValueError(f"the hierarchy {packed.shape} does not fit one "
                          "cluster's shared memory")
     _prepared(plan, dtype, dev, masked)
-    _, offs_c = cuda_band._check_offsets(band_op.offsets, amg.n)
+    _, offs_c = cudalib.check_offsets(band_op.offsets, amg.n, MAX_WIDTH)
     desc = _descriptor(plan, packed.goff, int(iters))
-    with cuda_band.on_device(dev):
+    fn = cudalib.entry("amg_pcg", dtype, AMG_PCG_ARGS)
+    with cudalib.on_device(dev):
         x = torch.empty_like(b)
         r = torch.empty_like(b)
-        err = cuda_band.kernel_fn("amg_pcg", dtype)(
+        err = fn(
             desc, packed.cs, offs_c, len(band_op.offsets), plan.smem_bytes,
             band_op.band.data_ptr(), packed.tpack.data_ptr(),
             packed.ipack.data_ptr(), b.data_ptr(), x0.data_ptr(),
             None if mask is None else mask.data_ptr(), x.data_ptr(),
-            r.data_ptr(), cuda_band.current_stream(dev))
-    cuda_band.check_error(err, "amg_pcg")
-    cuda_band.LAUNCHES["amg_pcg"] += 1
+            r.data_ptr(), cudalib.current_stream(dev))
+    cudalib.check_error(err, "amg_pcg")
+    cudalib.LAUNCHES["amg_pcg"] += 1
     return x, r

@@ -1,11 +1,11 @@
 // The AMG-preconditioned CG of the planar step's pressure Poisson solve in
 // one launch, for Hopper (sm_90a), bound to Python with ctypes.  Built into
-// the same library as band.cu (assembly/cuda_band.py::build_library).
+// the same library as band.cu (cudalib.py::build_library).
 //
 // amg_pcg_cluster_kernel runs, in one 16-CTA thread-block cluster,
 //
-//     solvers/planar_step.py::_pcg(A', b, x0, iters, project=P,
-//                                  precond_fn=AMG.apply)
+//     linalg/pcg.py::pcg(A', b, x0, iters, project=P,
+//                        precond_fn=AMG.apply)
 //
 // for A' v = m*L(m*v) + (1-m)*v with P r = m*r (masked) or A' = L with
 // P r = r - mean(r) (mean free), L a CirculantBand, and AMG the
@@ -72,6 +72,8 @@
 
 #include <cstring>
 
+#include "common.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
@@ -124,43 +126,6 @@ struct AmgParams {
   T* r;
 };
 
-template <typename T>
-struct PairOf;
-template <>
-struct PairOf<float> {
-  using type = float2;
-};
-template <>
-struct PairOf<double> {
-  using type = double2;
-};
-template <typename T>
-using Pair = typename PairOf<T>::type;
-
-template <typename T>
-__device__ __forceinline__ bool nonzero(T v) {
-  return v > T(0) || v < T(0);
-}
-
-__device__ __forceinline__ float mul_rn(float a, float b) {
-  return __fmul_rn(a, b);
-}
-__device__ __forceinline__ double mul_rn(double a, double b) {
-  return __dmul_rn(a, b);
-}
-__device__ __forceinline__ float add_rn(float a, float b) {
-  return __fadd_rn(a, b);
-}
-__device__ __forceinline__ double add_rn(double a, double b) {
-  return __dadd_rn(a, b);
-}
-__device__ __forceinline__ float sub_rn(float a, float b) {
-  return __fsub_rn(a, b);
-}
-__device__ __forceinline__ double sub_rn(double a, double b) {
-  return __dsub_rn(a, b);
-}
-
 // sum of term(w) over w < W, in order
 template <typename T, class F>
 __device__ __forceinline__ T width_sum(int W, F term) {
@@ -168,23 +133,6 @@ __device__ __forceinline__ T width_sum(int W, F term) {
 #pragma unroll 4
   for (int w = 0; w < W; ++w) acc += term(w);
   return acc;
-}
-
-// Sum over a warp, bit-identical in every lane.
-template <typename T>
-__device__ __forceinline__ T warp_total(T v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-// cluster.sync() with the release done by one thread after a block
-// barrier (band.cu's cluster_barrier).
-__device__ __forceinline__ void cluster_barrier() {
-  __syncthreads();
-  if (threadIdx.x == 0) asm volatile("fence.acq_rel.cluster;" ::: "memory");
-  asm volatile("barrier.cluster.arrive.relaxed.aligned;" ::: "memory");
-  asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
 }
 
 // One level's descriptor and this CTA's rows of it.

@@ -70,6 +70,8 @@
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
+#include "common.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
@@ -159,54 +161,12 @@ struct PcgParams {
                // 3 x gridDim.x block partials
 };
 
-// |v| > 0, false for NaN (the guard of torch.where(abs(v) > 0, ...)).
-template <typename T>
-__device__ __forceinline__ bool nonzero(T v) {
-  return v > T(0) || v < T(0);
-}
-
-__device__ __forceinline__ float mul_rn(float a, float b) {
-  return __fmul_rn(a, b);
-}
-__device__ __forceinline__ double mul_rn(double a, double b) {
-  return __dmul_rn(a, b);
-}
-__device__ __forceinline__ float add_rn(float a, float b) {
-  return __fadd_rn(a, b);
-}
-__device__ __forceinline__ double add_rn(double a, double b) {
-  return __dadd_rn(a, b);
-}
-
 // p_new = z + beta * p_old, rounded as the unfolded loop rounds it (never
 // contracted to an fma): the owner of a row and every neighbour that
 // recomputes it get the same bits.
 template <typename T>
 __device__ __forceinline__ T fold_p(T z, T beta, T p_old) {
   return add_rn(z, mul_rn(beta, p_old));
-}
-
-template <typename T>
-struct PairOf;
-template <>
-struct PairOf<float> {
-  using type = float2;
-};
-template <>
-struct PairOf<double> {
-  using type = double2;
-};
-// (z, p) of one row: the matvec reads both with one load.
-template <typename T>
-using Pair = typename PairOf<T>::type;
-
-// Sum over a warp, bit-identical in every lane: a butterfly in which two
-// partners add the same two values (a + b == b + a exactly).
-template <typename T>
-__device__ __forceinline__ T warp_total(T v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
 }
 
 // Sum of v over the block in a fixed order, valid in warp 0.  The caller
@@ -221,17 +181,6 @@ __device__ __forceinline__ T block_sum(T v, T* red) {
   if (warp == 0)
     s = warp_total(lane < (int)(blockDim.x >> 5) ? red[lane] : T(0));
   return s;
-}
-
-// cluster.sync() with the release done by one thread after a block
-// barrier: the fence covers every write of the CTA that the block barrier
-// ordered before it (shared memory, its own and remote), at about two
-// thirds of the cost of a releasing arrive by every thread.
-__device__ __forceinline__ void cluster_barrier() {
-  __syncthreads();
-  if (threadIdx.x == 0) asm volatile("fence.acq_rel.cluster;" ::: "memory");
-  asm volatile("barrier.cluster.arrive.relaxed.aligned;" ::: "memory");
-  asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
 }
 
 // sum_k band(k, i) * val((i + off_k) mod n)

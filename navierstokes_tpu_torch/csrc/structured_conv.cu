@@ -1,6 +1,6 @@
 // The nonlinear convection of the spectral step on class grids in two
 // launches, for Hopper (sm_90a), bound to Python with ctypes.  Built into
-// the same library as band.cu (assembly/cuda_band.py::build_library).
+// the same library as band.cu (cudalib.py::build_library).
 //
 // structured/ops.py::StructuredConvection assembles b_i = int (u.grad)u . N_i
 // on the class grids U (2^dim, *grid, d) of a periodic P2 velocity, cell by

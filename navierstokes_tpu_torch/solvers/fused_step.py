@@ -24,21 +24,7 @@ from __future__ import annotations
 
 import torch
 
-from navierstokes_tpu_torch.solvers import planar_step
-
-
-def _pcg(matvec, b, x0, iters, inv_diag=None, project=None, rtol=None):
-    """Preconditioned CG: ``iters`` iterations, or with ``rtol`` until
-    ||r|| <= rtol ||b|| with ``iters`` as the cap.  Returns
-    ``(x, ||r||)``; the update order and the zero-denominator guards are
-    those of ``planar_step._pcg``, which runs the loop."""
-    x, r = planar_step._pcg(matvec, b, x0, iters, inv_diag=inv_diag,
-                            project=project, rtol=rtol)
-    return x, torch.linalg.vector_norm(r)
-
-
-def _inv(d):
-    return 1.0 / torch.where(d.abs() > 1e-30, d, torch.ones_like(d))
+from navierstokes_tpu_torch.linalg.pcg import guarded_inverse, pcg
 
 
 def build_projection_step(space, ops, *, visc, dt, cg_iters=(12, 45, 8),
@@ -76,8 +62,8 @@ def build_projection_step(space, ops, *, visc, dt, cg_iters=(12, 45, 8),
     conv = ops.make_convection_rhs(conv_coeff)
     diag_m, diag_k, diag_l = ops.diagonals()
     dtype, device = diag_m.dtype, diag_m.device
-    inv_diag_l = _inv(diag_l)
-    inv_diag_m = _inv(diag_m)
+    inv_diag_l = guarded_inverse(diag_l)
+    inv_diag_m = guarded_inverse(diag_m)
     iters = tuple(int(i) for i in cg_iters)
     rtol = None if cg_rtol is None else float(cg_rtol)
 
@@ -133,30 +119,30 @@ def build_projection_step(space, ops, *, visc, dt, cg_iters=(12, 45, 8),
              - conv(u_ext) - grad(p))
         if body_rhs is not None:
             b = b + body_rhs
-        inv_diag_h = _inv((a0 / k) * diag_m + visc * diag_k)
+        inv_diag_h = guarded_inverse((a0 / k) * diag_m + visc * diag_k)
         H_m, fix = masked_u(lambda v: helm(v, a0 / k), v_vals)
         b, x0 = fix(b, u)
-        u_star, res_h = _pcg(H_m, b, x0, iters[0], inv_diag=inv_diag_h,
-                             rtol=rtol)
+        u_star, r_h = pcg(H_m, b, x0, iters[0], inv_diag=inv_diag_h,
+                          rtol=rtol)
 
         # (2) incremental pressure Poisson (warm-started)
         rhs = project_p((a0 / k) * div(u_star))
-        phi_new, res_p = _pcg(stiff_masked, rhs, project_p(phi), iters[1],
-                              inv_diag=inv_diag_l, project=project_p,
-                              rtol=rtol)
+        phi_new, r_p = pcg(stiff_masked, rhs, project_p(phi), iters[1],
+                           inv_diag=inv_diag_l, project=project_p, rtol=rtol)
 
         # (3) velocity correction
         b_corr = mass_u(u_star) - (k / a0) * grad(phi_new)
         M_m, fix = masked_u(mass_u, v_vals)
         b_corr, x0 = fix(b_corr, u_star)
-        u_new, res_m = _pcg(M_m, b_corr, x0, iters[2], inv_diag=inv_diag_m,
-                            rtol=rtol)
+        u_new, r_m = pcg(M_m, b_corr, x0, iters[2], inv_diag=inv_diag_m,
+                         rtol=rtol)
 
         p_new = p + phi_new
         if pres_bc_mask is None:
             p_new = p_new - p_new.mean()
         if with_residuals:
-            return u_new, p_new, phi_new, torch.stack([res_h, res_p, res_m])
+            return u_new, p_new, phi_new, torch.stack(
+                [torch.linalg.vector_norm(r) for r in (r_h, r_p, r_m)])
         return u_new, p_new, phi_new
 
     return step

@@ -7,9 +7,9 @@ the local contributions ``R`` (ntau, nlu, *grid, d) that
 ``StructuredConvection.quadrature(gather_local(U))`` gives.
 :func:`scatter` sums them onto the class grids in one launch of
 ``structured_conv_scatter_kernel``, in the order of
-``StructuredConvection.scatter_local``.  Both are built into
-``cuda_band``'s library; this module alone declares their C interface
-(:func:`_entry`).  They take CUDA tensors and raise on any other;
+``StructuredConvection.scatter_local``.  Both are built into the kernel
+library (``cudalib.py``); this module alone declares their C interface.
+They take CUDA tensors and raise on any other;
 ``StructuredConvection`` runs its plain ``gather_local``, ``quadrature``
 and ``scatter_local`` on the CPU.
 
@@ -17,27 +17,19 @@ and ``scatter_local`` on the CPU.
 what the quadrature kernel reads per simplex; :func:`build_tables` packs
 them once, with the lattice and the local nodes' classes and shifts, for
 one ``StructuredConvection``.  Each convection counts one launch under
-``cuda_band.LAUNCHES["structured_convection"]``, at its quadrature.
+``cudalib.LAUNCHES["structured_convection"]``, at its quadrature.
 """
 
 from __future__ import annotations
 
 import ctypes
-import functools
 from typing import NamedTuple
 
 import torch
 
-from navierstokes_tpu_torch.assembly import cuda_band
+from navierstokes_tpu_torch import cudalib
 
 _I, _P = ctypes.c_int, ctypes.c_void_p
-# the arguments of ns_structured_conv_<name>_<f32|f64>
-ARGTYPES = {
-    # dim, n0, n1, n2, ntau, nlu, nq, cls, shift, U, tables, R, stream
-    "quadrature": [_I] * 7 + [_P] * 6,
-    # dim, n0, n1, n2, ntau, nlu, cls, shift, R, out, stream
-    "scatter": [_I] * 6 + [_P] * 5,
-}
 
 
 class Tables(NamedTuple):
@@ -94,22 +86,12 @@ def _check_operand(name, X, tables, lead):
     """``X`` is (*lead, *lattice, dim), contiguous, of the tables' dtype
     and device."""
     want = tuple(lead) + tables.shape + (tables.dim,)
-    if X.dtype not in (torch.float32, torch.float64):
-        raise TypeError(f"{name}: dtype {X.dtype}; the structured "
-                        "convection kernels take float32 or float64")
-    if X.dtype != tables.pack.dtype:
-        raise TypeError(f"{name}: dtype {X.dtype} differs from the "
-                        f"convection's {tables.pack.dtype}")
-    if X.device != tables.pack.device:
-        raise ValueError(f"{name} is on {X.device}, the convection's tables "
-                         f"on {tables.pack.device}")
+    cudalib.check_tensors({name: X}, tables.pack.device, tables.pack.dtype)
     if X.ndim != len(want):
         raise ValueError(f"{name} has rank {X.ndim}, expected {len(want)} "
                          f"{want}")
     if tuple(X.shape) != want:
         raise ValueError(f"{name} is {tuple(X.shape)}, expected {want}")
-    if not X.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
     if not X.is_cuda:
         raise ValueError(f"{name} is on {X.device}: the structured "
                          "convection kernels take CUDA tensors (the plain "
@@ -122,14 +104,9 @@ def _lattice(tables):
     return tables.dim, n[0], n[1], n[2]
 
 
-@functools.lru_cache(maxsize=None)
-def _entry(name, dtype):
-    """``ns_structured_conv_<name>_<f32|f64>`` of the kernel library, its
-    arguments declared once."""
-    fn = cuda_band.kernel_fn(f"structured_conv_{name}", dtype)
-    fn.argtypes = ARGTYPES[name]
-    fn.restype = _I
-    return fn
+# ns_structured_conv_quadrature_<f32|f64>(dim, n0, n1, n2, ntau, nlu, nq,
+# cls, shift, U, tables, R, stream)
+QUADRATURE_ARGS = (_I,) * 7 + (_P,) * 6
 
 
 def quadrature(U, tables):
@@ -140,14 +117,21 @@ def quadrature(U, tables):
     and this raises."""
     _check_operand("U", U, tables, (2 ** tables.dim,))
     R = U.new_empty((tables.ntau, tables.nlu) + tuple(U.shape[1:]))
-    with cuda_band.on_device(U.device):
-        err = _entry("quadrature", U.dtype)(
-            *_lattice(tables), tables.ntau, tables.nlu, tables.nq, tables.cls,
-            tables.shift, U.data_ptr(), tables.pack.data_ptr(), R.data_ptr(),
-            cuda_band.current_stream(U.device))
-    cuda_band.check_error(err, "structured_conv_quadrature")
-    cuda_band.LAUNCHES["structured_convection"] += 1
+    fn = cudalib.entry("structured_conv_quadrature", U.dtype,
+                       QUADRATURE_ARGS)
+    with cudalib.on_device(U.device):
+        err = fn(*_lattice(tables), tables.ntau, tables.nlu, tables.nq,
+                 tables.cls, tables.shift, U.data_ptr(),
+                 tables.pack.data_ptr(), R.data_ptr(),
+                 cudalib.current_stream(U.device))
+    cudalib.check_error(err, "structured_conv_quadrature")
+    cudalib.LAUNCHES["structured_convection"] += 1
     return R
+
+
+# ns_structured_conv_scatter_<f32|f64>(dim, n0, n1, n2, ntau, nlu, cls,
+# shift, R, out, stream)
+SCATTER_ARGS = (_I,) * 6 + (_P,) * 5
 
 
 def scatter(R, tables):
@@ -156,10 +140,10 @@ def scatter(R, tables):
     kernel."""
     _check_operand("R", R, tables, (tables.ntau, tables.nlu))
     out = R.new_empty((2 ** tables.dim,) + tuple(R.shape[2:]))
-    with cuda_band.on_device(R.device):
-        err = _entry("scatter", R.dtype)(
-            *_lattice(tables), tables.ntau, tables.nlu, tables.cls,
-            tables.shift, R.data_ptr(), out.data_ptr(),
-            cuda_band.current_stream(R.device))
-    cuda_band.check_error(err, "structured_conv_scatter")
+    fn = cudalib.entry("structured_conv_scatter", R.dtype, SCATTER_ARGS)
+    with cudalib.on_device(R.device):
+        err = fn(*_lattice(tables), tables.ntau, tables.nlu, tables.cls,
+                 tables.shift, R.data_ptr(), out.data_ptr(),
+                 cudalib.current_stream(R.device))
+    cudalib.check_error(err, "structured_conv_scatter")
     return out

@@ -27,8 +27,8 @@ refuses ``aten._local_scalar_dense`` inside a chunk, so such a step raises
 :class:`CaptureError` on both.  A failed capture raises; nothing falls
 back to eager steps on the card.
 
-The band kernels' launch counts (``cuda_band.LAUNCHES``) grow where a
-wrapper launches a kernel, so on the card they count the launches of the
+The hand-written kernels' launch counts (``cudalib.LAUNCHES``) grow where
+a wrapper launches a kernel, so on the card they count the launches of the
 warm-up step and of the capture, never of a replay: the loop reports
 ``captured_launches`` (per chunk) and ``replays``.
 
@@ -54,8 +54,7 @@ import torch
 from torch.utils import _pytree as pytree
 from torch.utils._python_dispatch import TorchDispatchMode
 
-from navierstokes_tpu_torch import config
-from navierstokes_tpu_torch.assembly import cuda_band
+from navierstokes_tpu_torch import config, cudalib
 from navierstokes_tpu_torch.utils import monitor
 
 
@@ -169,7 +168,7 @@ class ChunkLoop:
                     self._leaves_of(self.step_fn(
                         pytree.tree_unflatten(self._static, self._spec)))
                 side.synchronize()
-            before = dict(cuda_band.LAUNCHES)
+            before = dict(cudalib.LAUNCHES)
             with monitor.span("graph.record") as record:
                 graph = self._captured(self._record_chunk, self.n, side)
             self.nodes = _node_count(graph)
@@ -178,7 +177,7 @@ class ChunkLoop:
                 graph.instantiate()
             torch.cuda.synchronize()
         self.graph = graph
-        self.captured_launches = {k: cuda_band.LAUNCHES[k] - before[k]
+        self.captured_launches = {k: cudalib.LAUNCHES[k] - before[k]
                                   for k in before}
         self.state = pytree.tree_unflatten(self._static, self._spec)
         self.warmup_seconds = warmup.seconds
@@ -250,7 +249,7 @@ class ChunkLoop:
         two events of its own (``step_ms``), and freed.  On the CPU
         ``replays`` chunks of ``steps`` eager steps from the same copies
         are timed by the host clock after one dropped chunk.  The loop's
-        graph, state, counts and ``cuda_band.LAUNCHES`` are left as they
+        graph, state, counts and ``cudalib.LAUNCHES`` are left as they
         were."""
         if self.graph is None:
             return self._phase_ms_eager(replays, steps)
@@ -265,10 +264,10 @@ class ChunkLoop:
                 for _ in range(steps):
                     state = self.step_fn(state)
 
-            launches = dict(cuda_band.LAUNCHES)
+            launches = dict(cudalib.LAUNCHES)
             with monitor.device_marks(dev) as marks:
                 graph = self._captured(body, steps, side)
-            cuda_band.LAUNCHES.update(launches)
+            cudalib.LAUNCHES.update(launches)
             graph.instantiate()
             graph.replay()
             start, end = (torch.cuda.Event(enable_timing=True)

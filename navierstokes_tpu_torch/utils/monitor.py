@@ -31,7 +31,7 @@ The tracing is one process-wide registry, read by the benchmark and by
   ``correction``.
 * :func:`counters` -- named groups of integer counters in
   :data:`COUNTERS` that code increments in place
-  (``cuda_band.LAUNCHES`` is the group ``"cuda_band.launches"``).
+  (``cudalib.LAUNCHES`` is the group ``"cuda_band.launches"``).
 """
 
 from __future__ import annotations

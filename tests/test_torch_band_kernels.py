@@ -27,6 +27,7 @@ import jax.numpy as jnp
 from navierstokes_tpu.assembly import pallas_band
 from navierstokes_tpu.assembly.fastop import CirculantBand as JaxBand
 from navierstokes_tpu.solvers.planar_step import _pcg as jax_pcg
+from navierstokes_tpu_torch import cudalib
 from navierstokes_tpu_torch.assembly import cuda_band
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -201,7 +202,7 @@ def _small_case(dtype=torch.float64):
 
 def test_cpu_tensors_take_the_plain_versions():
     band, offs, x = _small_case()
-    cuda_band.reset_launch_counts()
+    cudalib.reset_launch_counts()
     y = cuda_band.circulant_apply(band, offs, x)
     assert torch.equal(y, cuda_band.circulant_apply_plain(band, offs, x))
     invd = torch.ones(x.shape[-1], dtype=x.dtype)
@@ -210,8 +211,7 @@ def test_cpu_tensors_take_the_plain_versions():
     want = cuda_band.circulant_pcg_plain(band, offs, x, torch.zeros_like(x),
                                          invd, 1.0, 3, False)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
-    assert cuda_band.LAUNCHES == {"circulant_apply": 0, "circulant_pcg": 0,
-                                  "amg_pcg": 0, "structured_convection": 0}
+    assert cudalib.launched() == {}
 
 
 @pytest.mark.parametrize("dtype", [torch.float16, torch.bfloat16,
@@ -245,9 +245,10 @@ def test_kernel_module_imports_and_builds_lazily(tmp_path, monkeypatch):
     """Importing the kernels' module needs no nvcc (the build happens at
     the first CUDA call), and a missing nvcc raises at build time."""
     code = ("import sys\n"
-            "import navierstokes_tpu_torch.assembly.cuda_band as cb\n"
+            "import navierstokes_tpu_torch.cudalib as cl\n"
             "import navierstokes_tpu_torch.solvers.planar_step\n"
-            "assert not cb.load_library.cache_info().currsize\n"
+            "import navierstokes_tpu_torch.structured\n"
+            "assert not cl.load_library.cache_info().currsize\n"
             "assert 'triton' not in sys.modules\n")
     env = dict(os.environ, PATH=str(tmp_path), CUDA_HOME=str(tmp_path))
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
@@ -255,9 +256,9 @@ def test_kernel_module_imports_and_builds_lazily(tmp_path, monkeypatch):
     assert proc.returncode == 0, proc.stderr
     monkeypatch.setenv("PATH", str(tmp_path))
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
-    monkeypatch.setattr(cuda_band, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(cudalib, "BUILD_DIR", tmp_path / "build")
     with pytest.raises(RuntimeError, match="nvcc not found"):
-        cuda_band.build_library()
+        cudalib.build_library()
     assert not (tmp_path / "build").exists()
 
 
@@ -279,21 +280,21 @@ def test_build_compiles_each_source_then_links(tmp_path, monkeypatch, fail):
         "echo \"ptxas info from $out\"; : > \"$out\"\n")
     nvcc.chmod(0o755)
     monkeypatch.setenv("PATH", f"{tmp_path}:{os.environ['PATH']}")
-    monkeypatch.setattr(cuda_band, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(cudalib, "BUILD_DIR", tmp_path / "build")
     if fail is not None:
         with pytest.raises(RuntimeError, match="nvcc failed"):
-            cuda_band.build_library()
+            cudalib.build_library()
         assert list((tmp_path / "build").iterdir()) == []
         return
-    path, out = cuda_band.build_library()
-    assert path == cuda_band.library_path() and path.exists()
+    path, out = cudalib.build_library()
+    assert path == cudalib.library_path() and path.exists()
     assert [p.name for p in (tmp_path / "build").iterdir()] == [path.name]
     calls = log.read_text().splitlines()
-    assert len(calls) == len(cuda_band.SOURCES) + 1
-    for src in cuda_band.SOURCES:
+    assert len(calls) == len(cudalib.sources()) + 1
+    for src in cudalib.sources():
         call = next(c for c in calls if c.endswith(str(src)))
         assert " -c " in f" {call} " and "-shared" not in call
         assert "arch=compute_90a,code=sm_90a" in call
     assert calls[-1].startswith("-shared -o ")
-    assert out.count("ptxas info") == len(cuda_band.SOURCES) + 1
-    assert cuda_band.build_library() == (path, "")
+    assert out.count("ptxas info") == len(cudalib.sources()) + 1
+    assert cudalib.build_library() == (path, "")

@@ -18,7 +18,7 @@ import numpy as np
 import pytest
 import torch
 
-from navierstokes_tpu_torch import config
+from navierstokes_tpu_torch import config, cudalib
 from navierstokes_tpu_torch.assembly import cuda_band
 from navierstokes_tpu_torch.assembly.fastop import (FastTaylorHood,
                                                     planar_ops_from_numpy,
@@ -58,7 +58,7 @@ def test_pcg_plan_routes(shape, dtype, has_mask, route, ctas, resident):
     n, K, batch = shape
     plan = cuda_band.pcg_plan(n, K, batch, dtype, has_mask)
     assert (plan.route, plan.ctas, plan.resident) == (route, ctas, resident)
-    assert plan.smem_bytes <= cuda_band.SMEM_PER_BLOCK
+    assert plan.smem_bytes <= cudalib.SMEM_PER_BLOCK
     assert plan.ctas * plan.rows >= n
     esize = 4 if dtype == F32 else 8
     if route == "cluster":
@@ -84,10 +84,10 @@ def test_pcg_plan_cluster_budget():
 
 
 def test_index_range_is_checked():
-    cuda_band._check_index_range(23, 1 << 20, 2)
+    cudalib.check_index_range(23, 1 << 20, 2)
     for K, n, batch in ((1, 1 << 30, 1), (1, 1 << 29, 4), (96, 1 << 25, 1)):
         with pytest.raises(ValueError, match="2\\^3"):
-            cuda_band._check_index_range(K, n, batch)
+            cudalib.check_index_range(K, n, batch)
 
 
 def _spd_case(kind):

@@ -35,7 +35,7 @@ from navierstokes_tpu.solvers.planar_step import \
 from navierstokes_tpu.structured import grid as jgrid
 from navierstokes_tpu.structured import spectral as jspec
 from navierstokes_tpu.timestepping import BDFTimeStepping as JaxBDF
-from navierstokes_tpu_torch import setups
+from navierstokes_tpu_torch import cudalib, setups
 from navierstokes_tpu_torch.assembly import cuda_band
 from navierstokes_tpu_torch.assembly.fastop import FastTaylorHood
 from navierstokes_tpu_torch.assembly.operators import MixedOperator
@@ -222,7 +222,7 @@ def test_missing_names_raise_with_their_item():
 # ---------------------------------------------------------------------------
 
 def test_route_a_block_size_is_pinned():
-    src = open(cuda_band.SOURCE).read()
+    src = (cudalib.CSRC / "band.cu").read_text()
     threads = int(re.search(r"constexpr int kClusterThreads = (\d+);",
                             src).group(1))
     assert threads == cuda_band.CLUSTER_THREADS == 512

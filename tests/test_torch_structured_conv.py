@@ -20,7 +20,7 @@ import numpy as np
 import pytest
 import torch
 
-from navierstokes_tpu_torch.assembly import cuda_band
+from navierstokes_tpu_torch import cudalib
 from navierstokes_tpu_torch.fem.spaces import TaylorHoodSpace, axis_periodic
 from navierstokes_tpu_torch.mesh import hyper_cube
 from navierstokes_tpu_torch.structured import (PeriodicStructuredTH,
@@ -59,11 +59,11 @@ def test_cpu_tensors_take_the_plain_chain(dim):
     sg = _sgrid(dim)
     conv = StructuredConvection(sg, device="cpu")
     U = _velocity(sg, torch.float64)
-    cuda_band.reset_launch_counts()
+    cudalib.reset_launch_counts()
     want = conv.scatter_local(conv.quadrature(conv.gather_local(U)))
     assert torch.equal(conv(U), want)
     assert torch.equal(conv.plain(U), want)
-    assert cuda_band.LAUNCHES["structured_convection"] == 0
+    assert cudalib.LAUNCHES["structured_convection"] == 0
 
 
 @DIMS
@@ -125,7 +125,7 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(case):
     conv = StructuredConvection(sg, device="cpu")
     U = _velocity(sg, torch.float64)
     R = conv.quadrature(conv.gather_local(U))
-    cuda_band.reset_launch_counts()
+    cudalib.reset_launch_counts()
     error = TypeError if case == "dtype" else ValueError
     match = {"dtype": "float64", "rank": "rank", "contiguity": "contiguous",
              "grid": "expected", "cpu": "CUDA tensors"}[case]
@@ -133,7 +133,7 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(case):
         cuda_conv.quadrature(_bad_operand(case, U, 1), conv.tables)
     with pytest.raises(error, match=match):
         cuda_conv.scatter(_bad_operand(case, R, 2), conv.tables)
-    assert cuda_band.LAUNCHES["structured_convection"] == 0
+    assert cudalib.LAUNCHES["structured_convection"] == 0
 
 
 def test_launches_count_only_launches(monkeypatch):
@@ -145,8 +145,9 @@ def test_launches_count_only_launches(monkeypatch):
     R = conv.quadrature(conv.gather_local(U))
     codes, calls = [0], []
 
-    def kernel_fn(name, dtype):
+    def entry(name, dtype, argtypes):
         def fn(*args):
+            assert len(args) == len(argtypes)
             calls.append(name)
             return codes[0]
         return fn
@@ -160,23 +161,21 @@ def test_launches_count_only_launches(monkeypatch):
     monkeypatch.setattr(cuda_conv, "_check_operand",
                         lambda name, X, tables, lead: check(
                             name, X, tables, lead) if X.is_cuda else None)
-    monkeypatch.setattr(cuda_band, "kernel_fn", kernel_fn)
-    monkeypatch.setattr(cuda_band, "load_library", lambda: Lib)
-    monkeypatch.setattr(cuda_band, "current_stream", lambda device: 0)
-    cuda_conv._entry.cache_clear()
-    cuda_band.reset_launch_counts()
+    monkeypatch.setattr(cudalib, "entry", entry)
+    monkeypatch.setattr(cudalib, "load_library", lambda: Lib)
+    monkeypatch.setattr(cudalib, "current_stream", lambda device: 0)
+    cudalib.reset_launch_counts()
     conv(U)
-    assert cuda_band.LAUNCHES["structured_convection"] == 0 and not calls
+    assert cudalib.LAUNCHES["structured_convection"] == 0 and not calls
     cuda_conv.quadrature(U, conv.tables)
     cuda_conv.scatter(R, conv.tables)
-    assert cuda_band.LAUNCHES["structured_convection"] == 1
+    assert cudalib.LAUNCHES["structured_convection"] == 1
     assert calls == ["structured_conv_quadrature", "structured_conv_scatter"]
     codes[0] = 1
     for fn, X in ((cuda_conv.quadrature, U), (cuda_conv.scatter, R)):
         with pytest.raises(RuntimeError, match="refused"):
             fn(X, conv.tables)
-    assert cuda_band.LAUNCHES["structured_convection"] == 1
-    cuda_conv._entry.cache_clear()
+    assert cudalib.LAUNCHES["structured_convection"] == 1
 
 
 # ---------------------------------------------------------------------------
@@ -199,9 +198,9 @@ def test_kernels_match_the_plain_chain(card, shape, dtype):
     sg = _sgrid(len(shape), shape)
     conv = StructuredConvection(sg, dtype=dtype, device=card)
     U = _velocity(sg, dtype, card)
-    cuda_band.reset_launch_counts()
+    cudalib.reset_launch_counts()
     got = conv(U)
-    assert cuda_band.LAUNCHES["structured_convection"] == 1
+    assert cudalib.LAUNCHES["structured_convection"] == 1
     want = conv.plain(U)
     err = float((got - want).abs().max() / want.abs().max())
     assert err <= LIMITS[dtype], err
