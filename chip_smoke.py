@@ -63,7 +63,8 @@ non-zero):
                DoF-steps/s, the host setup seconds and the peak device
                memory per loop.  Each step launches the structured
                convection's kernels once and no band kernel, in both
-               loops (50 captured per chunk).
+               loops (50 captured per chunk), and the spectral step's
+               per-mode kernels once a step (spectral_modal).
 8. structured3d -- the same on the triply periodic shear wave at 48^3
                (2.76 M DoFs), f32: 50 eager steps, then 2 chunks of 50.
 9. structured_timing -- at both shapes, CUDA-event medians of one
@@ -71,8 +72,14 @@ non-zero):
                replaced (gather_local, quadrature, scatter_local), of
                each kernel alone, fwd_u / inv_u (MatmulDFT) beside
                torch.fft.fftn / ifftn over the same axes of the same class
-               grids, one _cmatmul in each lowering (vpu, einsum) and one
-               helmholtz_solve; and the device-busy share of 10 steps
+               grids; the spectral step's three per-mode kernels
+               (structured/cuda_modal.py) in f32 and f64 against their
+               phases' plain chains (largest error over the largest plain
+               entry: 1e-5 / 1e-12), each kernel's profiler time per call
+               beside the CUDA-event times of a wrapper call and of the
+               plain chain and the kernel's bound (each per-mode array read
+               once, each output written once); and the device-busy share
+               of 10 steps
                (torch.profiler kernel time over wall time) with the top
                kernels by device time.
 9a. structured_conv -- the structured convection's two kernels
@@ -360,7 +367,9 @@ from navierstokes_tpu_torch.structured import (PeriodicStructuredTH,
                                                StructuredConvection,
                                                build_spectral_projection_step,
                                                cuda_conv)
-from navierstokes_tpu_torch.structured.spectral import _cmatmul
+from navierstokes_tpu_torch.structured import cuda_modal, spectral
+from navierstokes_tpu_torch.structured.spectral import (SpectralOperators,
+                                                        SplitC)
 from navierstokes_tpu_torch.timestepping import BDFTimeStepping
 from navierstokes_tpu_torch.utils.graph import CaptureError, ChunkLoop
 
@@ -402,8 +411,9 @@ REPLACES = {
     "structured_convection": "none: XLA fused the JAX package's "
                              "structured convection on the TPU",
 }
-# the structured convection's kernels against the plain chain: the largest
-# error over the largest plain entry
+# the structured convection's kernels, and the spectral step's per-mode
+# kernels, against their plain chains: the largest error over the largest
+# plain entry
 CONV_LIMITS = {torch.float32: 1e-5, torch.float64: 1e-12}
 # the Poisson solve of the benchmark's march (cavity2d_128.march_graph):
 # AMG-preconditioned, 30 iterations, no tolerance
@@ -1551,9 +1561,11 @@ def phase_structured(ss, smi, profile_dir):
     for loop, row in loops.items():
         check_bench_row(ss.name, loop, row)
     none = dict.fromkeys(cudalib.LAUNCHES, 0)
-    want = {"dispatch": dict(none, structured_convection=bench.N_WARMUP
-                             + cfg["steps"]),
-            "scan": dict(none, structured_convection=bench.CHUNK)}
+    steps = bench.N_WARMUP + cfg["steps"]
+    want = {"dispatch": dict(none, structured_convection=steps,
+                             spectral_modal=steps),
+            "scan": dict(none, structured_convection=bench.CHUNK,
+                         spectral_modal=bench.CHUNK)}
     got = {"dispatch": launches["dispatch"],
            "scan": loops["scan"]["captured_launches"]}
     if got != want:
@@ -1599,33 +1611,82 @@ def busy_share(ss):
                             for t, count, key in rows[:8]]}
 
 
-def step_ms_per_lowering(ss, n_steps):
-    """Host-clock ms per step with NS_TPU_BLOCK_APPLY forced to each
-    _cmatmul lowering, in the order vpu, einsum, einsum, vpu."""
-    out = {"vpu": [], "einsum": []}
-    saved = os.environ.get("NS_TPU_BLOCK_APPLY")
-    try:
-        for mode in ("vpu", "einsum", "einsum", "vpu"):
-            os.environ["NS_TPU_BLOCK_APPLY"] = mode
-            ss.advance()
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for _ in range(n_steps):
-                ss.advance()
-            torch.cuda.synchronize()
-            out[mode].append(1e3 * (time.perf_counter() - t0) / n_steps)
-    finally:
-        if saved is None:
-            os.environ.pop("NS_TPU_BLOCK_APPLY", None)
-        else:
-            os.environ["NS_TPU_BLOCK_APPLY"] = saved
-    return out
+def modal_elements(nb, d):
+    """Elements per mode that each spectral modal kernel reads once and
+    writes once, for blocks of ``nb`` classes and ``d`` components (v = nb
+    d per (re, im) half of a velocity block, s = nb^2 of a symbol):
+    Helmholtz Uh, Uh_old, Ch, G and U* (10 v), M and P (4 s), lam, Ph;
+    Poisson U* and D (4 v), Linv and Phi; correction U*, G and Uh_new
+    (6 v), P (2 s), Phi, Ph and Ph_new."""
+    v, s = nb * d, nb * nb
+    return {"helmholtz": 10 * v + 4 * s + nb + 2, "poisson": 4 * v + 3,
+            "correction": 6 * v + 2 * s + 6}
+
+
+def check_spectral_modal(ss):
+    """The spectral step's three per-mode kernels at ``ss``'s shape in f32
+    (the step's operators) and f64, from seeded fields: each against its
+    phase's plain chain, its profiler time per call, the CUDA-event time
+    of a wrapper call and of the plain chain, and its bound.  Raises
+    beyond CONV_LIMITS."""
+    cases = {}
+    a0, k, visc = ALPHAS[1][0], DT, 1.0 / RE
+    for dtype in (torch.float32, torch.float64):
+        ops = ss.step.ops if dtype == torch.float32 else \
+            SpectralOperators(ss.sgrid, dtype=dtype, device=ss.dev)
+        gen = torch.Generator(device=ss.dev).manual_seed(11)
+        lead = tuple(ops.Linv.shape)
+
+        def split(shape):
+            return SplitC(*(torch.randn(shape, generator=gen, dtype=dtype,
+                                        device=ss.dev) for _ in range(2)))
+
+        vec = lead + (ops.n_uclass, ops.d)
+        Ch, Uh, Uh_old, Ph = split(vec), split(vec), split(vec), split(lead)
+        Ustar = spectral._helmholtz_plain(ops, Ch, Uh, Uh_old, Ph, ALPHAS[1],
+                                          k, visc)
+        Phi = spectral._poisson_plain(ops, Ustar, a0 / k)
+        calls = {
+            "helmholtz": (
+                lambda: cuda_modal.helmholtz(ops, Ch, Uh, Uh_old, Ph,
+                                             ALPHAS[1], k, visc),
+                lambda: spectral._helmholtz_plain(ops, Ch, Uh, Uh_old, Ph,
+                                                  ALPHAS[1], k, visc)),
+            "poisson": (lambda: cuda_modal.poisson(ops, Ustar, a0 / k),
+                        lambda: spectral._poisson_plain(ops, Ustar, a0 / k)),
+            "correction": (
+                lambda: cuda_modal.correction(ops, Ustar, Phi, Ph, k / a0,
+                                              True),
+                lambda: spectral._correction_plain(ops, Ustar, Phi, Ph,
+                                                   k / a0, True))}
+        elements = modal_elements(ops.n_uclass, ops.d)
+        modes = ops.Linv.numel()
+        for name, (kernel, plain) in calls.items():
+            got, want = kernel(), plain()
+            pairs = list(zip(got, want)) if name != "correction" else \
+                list(zip(got[0] + got[1], want[0] + want[1]))
+            err = max(abs_err(g, w) for g, w in pairs) / \
+                max(float(w.abs().max()) for _, w in pairs)
+            b_ms, b_by = bound(modes * elements[name] * Uh.re.element_size(),
+                               0, dtype)
+            dev_ms = device_ms(kernel, f"spectral_{name}_kernel")
+            cases[f"{name}_{str(dtype)[6:]}"] = {
+                "rel_err": err, "limit": CONV_LIMITS[dtype],
+                "device_ms": dev_ms, "ms": time_ms(kernel),
+                "plain_ms": time_ms(plain, PLAIN_RUNS),
+                "bound_ms": b_ms, "bound_by": b_by,
+                "bound_share": b_ms / dev_ms}
+        del ops, Ch, Uh, Uh_old, Ph, Ustar, Phi
+    bad = {n: c for n, c in cases.items() if not c["rel_err"] <= c["limit"]}
+    if bad:
+        raise AssertionError(f"{ss.name}: spectral modal kernels {bad}")
+    return cases
 
 
 def phase_structured_timing(setups, smi):
     """Per-call times of the structured step's parts at both shapes, the
-    library FFT beside MatmulDFT, both _cmatmul lowerings, and the
-    device-busy share of the step."""
+    library FFT beside MatmulDFT, the per-mode kernels beside their plain
+    chains, and the device-busy share of the step."""
     report = {}
     for ss in setups:
         ops, dim = ss.step.ops, ss.cfg["dim"]
@@ -1645,14 +1706,6 @@ def phase_structured_timing(setups, smi):
         if not ifft_err <= 1e-4:
             raise AssertionError(f"{ss.name}: inverse DFT rel err "
                                  f"{ifft_err} > 1e-4")
-        lowered = {m: _cmatmul(ops.Mhat, Uh, mode=m)
-                   for m in ("vpu", "einsum")}
-        low_err = max(rel_err(lowered["vpu"].re, lowered["einsum"].re),
-                      rel_err(lowered["vpu"].im, lowered["einsum"].im))
-        if not low_err <= 1e-5:
-            raise AssertionError(f"{ss.name}: _cmatmul lowerings differ by "
-                                 f"{low_err} > 1e-5")
-        a0k = ALPHAS[1][0] / DT
         R = cuda_conv.quadrature(U, conv.tables)
         report[ss.name] = {
             "config": ss.config,
@@ -1669,18 +1722,10 @@ def phase_structured_timing(setups, smi):
                 "torch_fft_fftn": time_ms(
                     lambda: torch.fft.fftn(U, dim=axes)),
                 "torch_fft_ifftn_real": time_ms(
-                    lambda: torch.fft.ifftn(Z, dim=axes).real),
-                "cmatmul_vpu": time_ms(
-                    lambda: _cmatmul(ops.Mhat, Uh, mode="vpu")),
-                "cmatmul_einsum": time_ms(
-                    lambda: _cmatmul(ops.Mhat, Uh, mode="einsum")),
-                "helmholtz_solve": time_ms(
-                    lambda: ops.helmholtz_solve(a0k, 1.0 / RE, Uh))},
+                    lambda: torch.fft.ifftn(Z, dim=axes).real)},
             "rel_err": {"matmul_dft_vs_fftn": fft_err,
-                        "inverse_dft": ifft_err,
-                        "cmatmul_vpu_vs_einsum": low_err},
-            "step_ms_by_block_apply": step_ms_per_lowering(
-                ss, max(N_BUSY, ss.cfg["steps"] // 4)),
+                        "inverse_dft": ifft_err},
+            "spectral_modal": check_spectral_modal(ss),
             "busy": busy_share(ss)}
     emit({"phase": "structured_timing", "unit": "ms", "nvidia_smi": smi,
           "ms": "median of CUDA-event times of one call",

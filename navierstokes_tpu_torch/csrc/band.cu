@@ -421,11 +421,7 @@ circulant_pcg_grid_kernel(const __grid_constant__ PcgParams<T> a) {
 // Shared-memory address helpers for the asynchronous reductions of
 // route A: a remote st.async lands in another CTA's shared memory and
 // completes bytes on that CTA's mbarrier, so the reader needs no
-// cluster-wide fence, only its own mbarrier wait.
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-  return (unsigned)__cvta_generic_to_shared(p);
-}
-
+// cluster-wide fence, only its own mbarrier wait (common.cuh).
 __device__ __forceinline__ unsigned map_rank(unsigned addr, int rank) {
   unsigned out;
   asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
@@ -450,30 +446,6 @@ __device__ __forceinline__ void st_async(unsigned addr, double v,
       "[%2];" ::"r"(addr),
       "l"(__double_as_longlong(v)), "r"(bar)
       : "memory");
-}
-
-__device__ __forceinline__ void mbar_init(unsigned bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(bar)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect(unsigned bar, unsigned bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
-                   bar),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(unsigned bar, unsigned parity) {
-  unsigned done;
-  do {
-    asm volatile(
-        "{ .reg .pred p; mbarrier.try_wait.parity.shared::cta.b64 p, [%1], "
-        "%2; selp.u32 %0, 1, 0, p; }"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
 }
 
 // Route A: everything in the cluster's shared memory.  Layout of one CTA,

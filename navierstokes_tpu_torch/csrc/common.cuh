@@ -1,7 +1,7 @@
-// Device helpers shared by the kernel sources (band.cu, amg_pcg.cu).  Each
-// source includes this header before its own code; everything here is
-// forced inline, so a kernel compiles as if the helper were written in its
-// own source.
+// Device helpers shared by the kernel sources (band.cu, amg_pcg.cu,
+// spectral_modal.cu).  Each source includes this header before its own
+// code; everything here is forced inline, so a kernel compiles as if the
+// helper were written in its own source.
 
 #pragma once
 
@@ -68,6 +68,38 @@ __device__ __forceinline__ void cluster_barrier() {
   if (threadIdx.x == 0) asm volatile("fence.acq_rel.cluster;" ::: "memory");
   asm volatile("barrier.cluster.arrive.relaxed.aligned;" ::: "memory");
   asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
+}
+
+// A shared-memory address as the 32-bit operand of PTX.
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+// An mbarrier that one arrival completes, together with the bytes that
+// asynchronous copies or stores announce to it (mbar_expect); mbar_wait
+// spins until the phase of the given parity has completed.
+__device__ __forceinline__ void mbar_init(unsigned bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(bar)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect(unsigned bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+                   bar),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(unsigned bar, unsigned parity) {
+  unsigned done;
+  do {
+    asm volatile(
+        "{ .reg .pred p; mbarrier.try_wait.parity.shared::cta.b64 p, [%1], "
+        "%2; selp.u32 %0, 1, 0, p; }"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
 }
 
 }  // namespace

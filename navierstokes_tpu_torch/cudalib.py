@@ -3,8 +3,8 @@
 Each kernel family is a source ``csrc/<family>.cu`` with a plain C
 interface and a wrapper that declares and calls it
 (``assembly/cuda_band.py``, ``assembly/cuda_amg.py``,
-``structured/cuda_conv.py``); device helpers that several sources use are
-in ``csrc/common.cuh``.  This module owns what the families share:
+``structured/cuda_conv.py``, ``structured/cuda_modal.py``); device helpers
+that several sources use are in ``csrc/common.cuh``.  This module owns what the families share:
 
 * the build: every ``csrc/*.cu`` is compiled by ``nvcc`` for ``sm_90a``
   into one library under ``navierstokes_tpu_torch/_build/`` when a wrapper
@@ -44,7 +44,7 @@ SMEM_PER_BLOCK = 232_448  # the opt-in shared memory of one sm_90 block
 
 LAUNCHES = monitor.counters("cuda_band.launches",
                             ("circulant_apply", "circulant_pcg", "amg_pcg",
-                             "structured_convection"))
+                             "structured_convection", "spectral_modal"))
 
 
 def reset_launch_counts() -> None:

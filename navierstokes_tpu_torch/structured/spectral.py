@@ -50,6 +50,7 @@ import torch
 from navierstokes_tpu_torch import config
 from navierstokes_tpu_torch.parallel.comm import (allgather, as_mesh,
                                                   ppermute)
+from navierstokes_tpu_torch.structured import cuda_modal
 from navierstokes_tpu_torch.structured.grid import (NotStructured,
                                                     PeriodicStructuredTH)
 from navierstokes_tpu_torch.structured.ops import (StructuredConvection,
@@ -59,10 +60,9 @@ from navierstokes_tpu_torch.utils import monitor
 # the per-mode arrays that spectral_ops_to_numpy / _from_numpy carry
 _SPLIT_ARRAYS = ("Mhat", "Khat", "Ghat", "Dhat", "P", "PH")
 _REAL_ARRAYS = ("lam", "Linv")
-# _cmatmul lowering when NS_TPU_BLOCK_APPLY is unset, in 2D and 3D alike: on
-# an H100 the batched product of 8x8 blocks runs through a small-matrix
-# GEMM kernel several times slower than the broadcast-multiply-sum, and
-# with 4x4 blocks the two tie (PERF.md section 6)
+# _cmatmul lowering when NS_TPU_BLOCK_APPLY is unset.  The knob picks the
+# lowering of the plain chain, which runs on the CPU and mirrors the JAX
+# package's two; on a card the per-mode work is cuda_modal's kernels
 _BLOCK_APPLY_DEFAULT = "vpu"
 
 
@@ -375,40 +375,63 @@ def _axpy(a, X: SplitC, Y):
                   torch.add(Y.im, X.im, alpha=a))
 
 
+def _helmholtz_plain(ops, Ch, Uh, Uh_old, Ph, alpha, k, visc):
+    """The Helmholtz phase's plain chain: u* of
+    (a0/k M + nu K) u* = -(a1/k)M u - (a2/k)M u_old - C(extrapolated u)
+    - G p."""
+    a0, a1, a2 = alpha
+    Bh = _axpy(-(a1 / k), ops.mass(Uh), None)
+    Bh = _axpy(-(a2 / k), ops.mass(Uh_old), Bh)
+    Bh = _axpy(-1.0, Ch, Bh)
+    Bh = _axpy(-1.0, ops.grad(Ph), Bh)
+    return ops.helmholtz_solve(a0 / k, visc, Bh)
+
+
+def _poisson_plain(ops, Ustar_h, a0k):
+    """The Poisson phase's plain chain: the incremental pressure (exact,
+    mean-free)."""
+    return ops.poisson_solve(_axpy(a0k, ops.div(Ustar_h), None))
+
+
+def _correction_plain(ops, Ustar_h, Phi_h, Ph, ka0, has_zero_mode):
+    """The correction phase's plain chain: velocity correction and
+    pressure update."""
+    Uh_new = _axpy(-ka0, ops.mass_solve(ops.grad(Phi_h)), Ustar_h)
+    # fresh sums, so zeroing the constant mode touches no tensor that the
+    # old state still holds
+    Ph_new = SplitC(Ph.re + Phi_h.re, Ph.im + Phi_h.im)
+    if has_zero_mode:
+        # zero_() fills on the device; assigning a Python 0.0 to the
+        # element would copy it from the host, which a CUDA graph refuses
+        zero_mode = (0,) * ops.dim
+        Ph_new.re[zero_mode].zero_()
+        Ph_new.im[zero_mode].zero_()
+    return Uh_new, Ph_new
+
+
 def _modal_update(ops, Ch, Uh, Uh_old, Ph, alpha, k, visc, has_zero_mode):
     """The per-mode part of one step, from the spectral convection ``Ch``
     to (Uh_new, Ph_new); ``has_zero_mode``: ``ops`` holds the constant
     mode at its index 0, whose pressure is zeroed.  Its device work is
     the phases ``helmholtz``, ``poisson`` and (a first part of)
-    ``correction``."""
-    a0, a1, a2 = alpha
-    # (1) Helmholtz: (a0/k M + nu K) u* = -(a1/k)M u - (a2/k)M u_old
-    #                                     - C(extrapolated u) - G p
+    ``correction``: on a card one kernel each (``cuda_modal``), on the
+    CPU the plain chains ``_helmholtz_plain``, ``_poisson_plain`` and
+    ``_correction_plain``."""
+    a0 = alpha[0]
+    if Uh.re.is_cuda:
+        helmholtz, poisson, correction = (
+            cuda_modal.helmholtz, cuda_modal.poisson, cuda_modal.correction)
+    else:
+        helmholtz, poisson, correction = (
+            _helmholtz_plain, _poisson_plain, _correction_plain)
     with monitor.phase("helmholtz"):
-        Bh = _axpy(-(a1 / k), ops.mass(Uh), None)
-        Bh = _axpy(-(a2 / k), ops.mass(Uh_old), Bh)
-        Bh = _axpy(-1.0, Ch, Bh)
-        Bh = _axpy(-1.0, ops.grad(Ph), Bh)
-        Ustar_h = ops.helmholtz_solve(a0 / k, visc, Bh)
-
-    # (2) incremental pressure Poisson (exact, mean-free)
+        Ustar_h = SplitC(*helmholtz(ops, Ch, Uh, Uh_old, Ph, alpha, k, visc))
     with monitor.phase("poisson"):
-        Phi_h = ops.poisson_solve(_axpy(a0 / k, ops.div(Ustar_h), None))
-
-    # (3) velocity correction + pressure update
+        Phi_h = SplitC(*poisson(ops, Ustar_h, a0 / k))
     with monitor.phase("correction"):
-        Uh_new = _axpy(-(k / a0), ops.mass_solve(ops.grad(Phi_h)), Ustar_h)
-        # fresh sums, so zeroing the constant mode touches no tensor that
-        # the old state still holds
-        Ph_new = SplitC(Ph.re + Phi_h.re, Ph.im + Phi_h.im)
-        if has_zero_mode:
-            # zero_() fills on the device; assigning a Python 0.0 to the
-            # element would copy it from the host, which a CUDA graph
-            # refuses
-            zero_mode = (0,) * ops.dim
-            Ph_new.re[zero_mode].zero_()
-            Ph_new.im[zero_mode].zero_()
-    return Uh_new, Ph_new
+        Uh_new, Ph_new = correction(ops, Ustar_h, Phi_h, Ph, k / a0,
+                                    has_zero_mode)
+    return SplitC(*Uh_new), SplitC(*Ph_new)
 
 
 def build_spectral_projection_step(sgrid: PeriodicStructuredTH, *, visc,

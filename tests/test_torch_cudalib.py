@@ -19,7 +19,7 @@ import torch
 
 from navierstokes_tpu_torch import cudalib
 from navierstokes_tpu_torch.assembly import cuda_amg, cuda_band
-from navierstokes_tpu_torch.structured import cuda_conv
+from navierstokes_tpu_torch.structured import cuda_conv, cuda_modal
 
 PKG = Path(cudalib.__file__).resolve().parent
 
@@ -114,7 +114,8 @@ def test_offsets_are_checked_against_the_cap():
 # the wrappers' C interfaces against the sources
 # ---------------------------------------------------------------------------
 
-_C_TYPES = {"int": ctypes.c_int, "long long": ctypes.c_longlong}
+_C_TYPES = {"int": ctypes.c_int, "long long": ctypes.c_longlong,
+            "double": ctypes.c_double}
 
 
 def _c_signatures():
@@ -142,6 +143,9 @@ DECLARED = {
     "amg_pcg": cuda_amg.AMG_PCG_ARGS,
     "structured_conv_quadrature": cuda_conv.QUADRATURE_ARGS,
     "structured_conv_scatter": cuda_conv.SCATTER_ARGS,
+    "spectral_helmholtz": cuda_modal.HELMHOLTZ_ARGS,
+    "spectral_poisson": cuda_modal.POISSON_ARGS,
+    "spectral_correction": cuda_modal.CORRECTION_ARGS,
 }
 
 
