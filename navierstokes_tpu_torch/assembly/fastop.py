@@ -146,6 +146,12 @@ def _wrap_pad(a, e):
 # device formats
 # ---------------------------------------------------------------------------
 
+# applies of the unstructured formats, by format; Python counts, which a
+# captured graph's replays do not add to
+# (``utils/graph.ChunkLoop.captured_counts``)
+APPLIES = monitor.counters("fastop.applies", ("affine_band", "gather"))
+
+
 class CirculantBand:
     """y[i] = sum_d band[d, i] * x[(i + off_d) mod N].
 
@@ -238,6 +244,7 @@ class AffineBand:
 
     def apply(self, x):
         """x: (..., n_cols) -> (..., n_rows)."""
+        APPLIES["affine_band"] += 1
         lead = tuple(x.shape[:-1])
         wins = self._windows(x).reshape(-1, self.nblk, self.W)
         # (nblk, RB, W) @ (nblk, W, B) -> (nblk, RB, B)
@@ -362,6 +369,7 @@ class GatherOp:
 
     def apply(self, x):
         """x: (..., n_cols) -> (..., n_rows)."""
+        APPLIES["gather"] += 1
         xp = torch.cat([x, x.new_zeros(x.shape[:-1] + (1,))], dim=-1)
         return (self._vals_ell * xp[..., self._cols_ell]).sum(dim=-1)
 

@@ -23,7 +23,8 @@ import numpy as np
 
 from navierstokes_tpu_torch.fem.bcs import (PressureBCType, TractionBCType,
                                       VelocityBCType)
-from navierstokes_tpu_torch.fem.spaces import TaylorHoodSpace, _eval_field
+from navierstokes_tpu_torch.fem.spaces import (TaylorHoodSpace, _accepts_time,
+                                               _eval_field)
 from navierstokes_tpu_torch.mesh.core import FacetMarkers, boundary_normal
 
 
@@ -55,6 +56,14 @@ class CompiledDirichletBCs:
     entries: list = field(default_factory=list)
     dim: int = 2
     time_dependent: bool = False
+
+    @property
+    def reads_time(self) -> bool:
+        """Whether a value is declared as a function of the time: a
+        callable that takes it (``f(x, t)``), which ``values(t)`` calls
+        with the time.  ``time_dependent`` counts every callable."""
+        return any(callable(e.value) and _accepts_time(e.value)
+                   for e in self.entries)
 
     def values(self, t=None) -> np.ndarray:
         out = np.zeros(len(self.dofs))

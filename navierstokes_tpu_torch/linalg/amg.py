@@ -26,6 +26,11 @@ from navierstokes_tpu_torch.utils.segment import (SegmentSum,
                                                    padded_row_sum, take_rows)
 
 
+# V-cycles run (``AMG.apply`` calls); a Python count, which a captured
+# graph's replays do not add to (``utils/graph.ChunkLoop.captured_counts``)
+VCYCLES = monitor.counters("amg", ("vcycles",))
+
+
 def _columns(v, x):
     """The (n,) vector ``v`` shaped to scale the rows of ``x``."""
     return v.view(v.shape + (1,) * (x.dim() - 1))
@@ -204,7 +209,8 @@ class AMG:
         """One V-cycle: approximate A^{-1} r for r (n,) or each column of
         r (n, k).  Its device work is the phase ``amg.vcycle``, which
         marks its own start: a solve's own work runs between two
-        V-cycles."""
+        V-cycles.  Each call adds one to :data:`VCYCLES`."""
+        VCYCLES["vcycles"] += 1
         with monitor.phase("amg.vcycle", joined=False):
             return self._vcycle(0, r)
 

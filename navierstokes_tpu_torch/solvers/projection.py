@@ -22,6 +22,13 @@ the same step functions as the benchmark scripts:
   (``solvers/halo_step.py`` over ``parallel/halo.py``), its state
   partitioned over the shards.
 
+``solve()`` is one eager step.  On the banded path with fixed iteration
+counts and Dirichlet data that do not read the time,
+:meth:`ProjectionSolver.captured_step` gives the step as a function of its
+tensors alone, with the nodal reaction force on a boundary computed on
+the device every step, for ``utils/graph.ChunkLoop`` to run in chunks (one
+CUDA graph replay each).
+
 Scheme: semi-implicit incremental pressure correction with variable-step
 BDF weights alpha from ``BDFTimeStepping`` and matching extrapolation
 weights eta = (1 + omega, -omega).
@@ -54,6 +61,9 @@ from navierstokes_tpu_torch.structured import (NotStructured,
                                                build_spectral_projection_step)
 from navierstokes_tpu_torch.structured.spectral import shard_spectral_step
 from navierstokes_tpu_torch.timestepping import BDFTimeStepping
+from navierstokes_tpu_torch.timestepping.bdf import (bdf1_weights_d1,
+                                                     bdf2_weights_d1)
+from navierstokes_tpu_torch.utils import monitor
 from navierstokes_tpu_torch.utils.monitor import timed_region
 
 
@@ -453,13 +463,92 @@ class ProjectionSolver(InstationarySolverBase):
             self._p)
         return self._solutions[0]
 
+    # -- captured stepping -------------------------------------------------
+    def captured_step(self, reaction_boundary, reaction_scale=1.0):
+        """``(step, state)``: the banded step as a function of its tensors
+        alone, ``state = step(state)``, for ``utils/graph.ChunkLoop``.
+
+        ``state`` is ``(u, u_old, p, phi, force)``: the first four in the
+        engine's planar permuted layout (``FastTaylorHood``), taken from
+        the solver's current state; ``force``, ``reaction_scale`` times the
+        nodal reaction force on the boundary ``reaction_boundary``
+        (:meth:`boundary_reaction_force`) after each step, (c_D, c_L) of
+        a flow past a body with the scale 2 / (rho U^2 D).  It starts as
+        the force of the current state at the step's weights.  The step
+        equals ``solve()`` with constant-step weights: the BDF weights,
+        the extrapolation and the step size are fixed here, the velocity
+        Dirichlet values were uploaded at set-up, and nothing is read on
+        the host.  The force's device work is the phase
+        ``reaction_force``.  The solver's own state and its time stepping
+        stay where the call found them.
+
+        Refused (``ValueError``) on another path than the banded one,
+        with ``cg_rtol`` (its stopping test reads a norm on the host every
+        iteration), with velocity Dirichlet data declared as a function of
+        the time (``f(x, t)``, whose values ``solve()`` evaluates anew
+        every step), before the first step (SBDF-1) and when the next
+        step size is not the last one."""
+        if not self._setup_done:
+            self._setup_problem()
+        if self._step_kind != "fast":
+            raise ValueError(f"captured_step runs the banded step; this "
+                             f"solver runs the {self._step_kind!r} step")
+        if self._cg_rtol is not None:
+            raise ValueError(
+                f"captured_step needs fixed iteration counts: cg_rtol "
+                f"{self._cg_rtol!r} stops each solve on a residual norm "
+                f"read on the host; pass cg_rtol=None")
+        if self._vel_dirichlet.reads_time:
+            raise ValueError(
+                "captured_step uploads the velocity Dirichlet values once: "
+                "a boundary condition declared as a function of the time "
+                "(f(x, t)) needs solve()")
+        ts = self._time_stepping
+        k = ts.get_next_step_size()
+        if ts.step_number < 1 or \
+                abs(ts.get_previous_step_size() - k) > 1e-9 * k:
+            raise ValueError(
+                "captured_step takes constant steps: take the first step "
+                "and any change of the step size with solve()")
+        # the constant-step weights of the time stepping's order
+        alpha = bdf2_weights_d1(1.0) if len(ts.coefficients(1)) > 2 \
+            else bdf1_weights_d1() + (0.0,)
+        eta = (2.0, -1.0)
+        fast, fast_step, body_rhs = self._fast, self._fast_step, \
+            self._body_rhs
+
+        def advance(u, u_old, p, phi):
+            return fast_step(u, u_old, p, phi, alpha, eta, bc_values=None,
+                             k=k, body_rhs=body_rhs)[:3]
+
+        reaction = self._reaction(reaction_boundary, alpha, k)
+        scale = float(reaction_scale)
+
+        def force(u, u_old, u_old2, p):
+            with monitor.phase("reaction_force"):
+                return scale * reaction(
+                    *(fast.planar_to_interleaved(v) for v in (u, u_old,
+                                                              u_old2)),
+                    fast.unpermute_pressure(p))
+
+        def step(state):
+            u, u_old, p, phi, _ = state
+            u_new, p_new, phi_new = advance(u, u_old, p, phi)
+            return (u_new, u, p_new, phi_new, force(u_new, u, u_old, p_new))
+
+        # the force of the current state at the step's weights, through
+        # the step's own calls: their index tensors and the operator's
+        # tables are made here, before any capture
+        f0 = force(self._u2, self._u2_old,
+                   fast.interleaved_to_planar(self._u_old2), self._p2)
+        return step, (self._u2, self._u2_old, self._p2, self._phi2, f0)
+
     # -- postprocessing ----------------------------------------------------------
-    def boundary_reaction_force(self, bndry_id):
-        """Nodal-reaction drag/lift (see SolverBase.boundary_reaction_force):
-        the monolithic momentum residual is evaluated un-masked at the
-        current projection state (u_{n+1}, u_n, u_{n-1}, alpha).  Returns
-        a (dim,) tensor on the solver's device without waiting for it.
-        """
+    def _reaction(self, bndry_id, alpha, k):
+        """``force(u, u_old, u_old2, p)``: the nodal reaction on boundary
+        ``bndry_id`` of the interleaved velocity levels and the pressure
+        in the space's numbering, with BDF weights ``alpha`` and step
+        ``k`` (Python numbers: constants of the function)."""
         assert self._step_kind in ("generic", "fast"), \
             "reaction forces need a Dirichlet boundary (generic/fast path)"
         assert not self._has_body_force(), \
@@ -474,15 +563,27 @@ class ProjectionSolver(InstationarySolverBase):
             nodes = self._reaction_nodes[bndry_id] = torch.as_tensor(
                 np.asarray(space.facet_unodes(facet_ids), dtype=np.int64),
                 device=self._device)
-
-        a = [float(v) for v in self._alpha[:3]]
-        a += [0.0] * (3 - len(a))
-        k = float(self._next_step_size)
+        a0, a1, a2 = alpha
         scalars = dict(self._scalars())
-        scalars["accel0"] = a[0] / k
-        hist = (a[1] / k) * op.u_at_quad(self._u_old.reshape(-1, dim)) \
-            + (a[2] / k) * op.u_at_quad(self._u_old2.reshape(-1, dim))
-        r = op.residual(torch.cat([self._u, self._p]), None, scalars, hist,
-                        mask_bcs=False)
-        r_u = r[:space.n_velocity_dofs].reshape(-1, dim)
-        return -r_u[nodes].sum(dim=0)
+        scalars["accel0"] = a0 / k
+
+        def force(u, u_old, u_old2, p):
+            hist = (a1 / k) * op.u_at_quad(u_old.reshape(-1, dim)) \
+                + (a2 / k) * op.u_at_quad(u_old2.reshape(-1, dim))
+            r = op.residual(torch.cat([u, p]), None, scalars, hist,
+                            mask_bcs=False)
+            r_u = r[:space.n_velocity_dofs].reshape(-1, dim)
+            return -r_u[nodes].sum(dim=0)
+
+        return force
+
+    def boundary_reaction_force(self, bndry_id):
+        """Nodal-reaction drag/lift (see SolverBase.boundary_reaction_force):
+        the monolithic momentum residual is evaluated un-masked at the
+        current projection state (u_{n+1}, u_n, u_{n-1}, alpha).  Returns
+        a (dim,) tensor on the solver's device without waiting for it.
+        """
+        a = [float(v) for v in self._alpha[:3]]
+        force = self._reaction(bndry_id, tuple(a + [0.0] * (3 - len(a))),
+                               float(self._next_step_size))
+        return force(self._u, self._u_old, self._u_old2, self._p)

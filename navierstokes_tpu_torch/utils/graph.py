@@ -30,7 +30,10 @@ back to eager steps on the card.
 The hand-written kernels' launch counts (``cudalib.LAUNCHES``) grow where
 a wrapper launches a kernel, so on the card they count the launches of the
 warm-up step and of the capture, never of a replay: the loop reports
-``captured_launches`` (per chunk) and ``replays``.
+``captured_launches`` (per chunk) and ``replays``.  Every other counter
+group of ``utils/monitor.py`` (the AMG's V-cycles, the unstructured
+operators' applies) counts the same way; ``captured_counts`` holds what
+each counted over the capture's ``n`` steps.
 
 The capture is traced (``utils/monitor.py``): the spans ``graph.warmup``
 (the side-stream step), ``graph.record`` (the ``n`` steps enqueued under
@@ -54,7 +57,9 @@ import torch
 from torch.utils import _pytree as pytree
 from torch.utils._python_dispatch import TorchDispatchMode
 
-from navierstokes_tpu_torch import config, cudalib
+from navierstokes_tpu_torch import config
+# registers its launch counters, the group "cuda_band.launches"
+from navierstokes_tpu_torch import cudalib  # noqa: F401
 from navierstokes_tpu_torch.utils import monitor
 
 
@@ -134,7 +139,7 @@ class ChunkLoop:
                                  f"{self.device}")
         self._layout = [(t.shape, t.dtype) for t in leaves]
         self.replays = 0
-        self.captured_launches = None
+        self.captured_launches = self.captured_counts = None
         self.capture_seconds = None
         self.warmup_seconds = self.record_seconds = None
         self.instantiate_seconds = self.nodes = None
@@ -168,17 +173,17 @@ class ChunkLoop:
                     self._leaves_of(self.step_fn(
                         pytree.tree_unflatten(self._static, self._spec)))
                 side.synchronize()
-            before = dict(cudalib.LAUNCHES)
+            counted = monitor.counter_values()
             with monitor.span("graph.record") as record:
                 graph = self._captured(self._record_chunk, self.n, side)
+            self.captured_counts = monitor.counts_since(counted)
             self.nodes = _node_count(graph)
             monitor.counters("graph", ("nodes",))["nodes"] += self.nodes
             with monitor.span("graph.instantiate") as instantiate:
                 graph.instantiate()
             torch.cuda.synchronize()
         self.graph = graph
-        self.captured_launches = {k: cudalib.LAUNCHES[k] - before[k]
-                                  for k in before}
+        self.captured_launches = self.captured_counts["cuda_band.launches"]
         self.state = pytree.tree_unflatten(self._static, self._spec)
         self.warmup_seconds = warmup.seconds
         self.record_seconds = record.seconds
@@ -239,7 +244,8 @@ class ChunkLoop:
         """Time of each phase of a step (``utils/monitor.phase``: the four
         phases of the step, and those nested in them: ``amg.vcycle`` where
         the step has one, the structured convection's three and
-        ``spectral.dft`` in the spectral step) in ms per step, as a
+        ``spectral.dft`` in the spectral step; ``reaction_force`` after
+        them in ``ProjectionSolver.captured_step``) in ms per step, as a
         :class:`PhaseTimes`.
 
         On the card ``steps`` steps from copies of the current state are
@@ -249,8 +255,9 @@ class ChunkLoop:
         two events of its own (``step_ms``), and freed.  On the CPU
         ``replays`` chunks of ``steps`` eager steps from the same copies
         are timed by the host clock after one dropped chunk.  The loop's
-        graph, state, counts and ``cudalib.LAUNCHES`` are left as they
-        were."""
+        graph, state and counts and, on the card, the counters of
+        ``utils/monitor.py`` (``cudalib.LAUNCHES`` among them) are left as
+        they were."""
         if self.graph is None:
             return self._phase_ms_eager(replays, steps)
         dev = self._static[0].device
@@ -264,10 +271,10 @@ class ChunkLoop:
                 for _ in range(steps):
                     state = self.step_fn(state)
 
-            launches = dict(cudalib.LAUNCHES)
+            counted = monitor.counter_values()
             with monitor.device_marks(dev) as marks:
                 graph = self._captured(body, steps, side)
-            cudalib.LAUNCHES.update(launches)
+            monitor.restore_counters(counted)
             graph.instantiate()
             graph.replay()
             start, end = (torch.cuda.Event(enable_timing=True)

@@ -31,7 +31,12 @@ The tracing is one process-wide registry, read by the benchmark and by
   ``correction``.
 * :func:`counters` -- named groups of integer counters in
   :data:`COUNTERS` that code increments in place
-  (``cudalib.LAUNCHES`` is the group ``"cuda_band.launches"``).
+  (``cudalib.LAUNCHES`` is the group ``"cuda_band.launches"``; ``"amg"``
+  counts ``AMG.apply``'s V-cycles, ``"fastop.applies"`` the applies of the
+  unstructured formats ``AffineBand`` and ``GatherOp``).  They count
+  Python calls, so a graph replay adds nothing: ``utils/graph.ChunkLoop``
+  reads what its capture counted (:func:`counter_values`,
+  :func:`counts_since`).
 """
 
 from __future__ import annotations
@@ -225,6 +230,26 @@ def counters(group, names):
     """The counters of ``group`` (made at 0 for ``names`` on first use):
     a dict the counting code increments in place."""
     return COUNTERS.setdefault(group, dict.fromkeys(names, 0))
+
+
+def counter_values():
+    """A copy of every counter, ``{group: {name: count}}``."""
+    return {group: dict(names) for group, names in COUNTERS.items()}
+
+
+def counts_since(before):
+    """What every counter has counted since ``before``
+    (:func:`counter_values`), ``{group: {name: count}}``."""
+    return {group: {name: n - before.get(group, {}).get(name, 0)
+                    for name, n in names.items()}
+            for group, names in COUNTERS.items()}
+
+
+def restore_counters(values):
+    """Set every counter in ``values`` (:func:`counter_values`) back to
+    the count it holds there (in place)."""
+    for group, names in values.items():
+        COUNTERS[group].update(names)
 
 
 def reset():
